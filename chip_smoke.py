@@ -10,23 +10,40 @@ exits non-zero before printing any result. Phases, each raising on failure:
 1. build: compiles the hand-written kernels (clip_gp_tpu_torch/csrc) and
    prints the build time, the card (``nvidia-smi`` name and power limit) and
    which optional host packages (PIL, yaml, regex) import;
-2. kernels: K1 (fused LN-attention block) and K2 (fused LN-MLP block) against
-   their plain PyTorch versions at the main path's shapes — ViT-B/16
+2. kernels: K1 (fused LN-attention block) and K2 (fused LN-MLP block)
+   against their plain PyTorch versions at the main path's shapes — ViT-B/16
    (B=32 and the training path's device batch B=512, N=197, D=768, H=12) and
-   the text tower (B=256, N=77, D=512, H=8, causal) — in fp32 and bf16, with
-   the error against the stated tolerance and CUDA-event times (median of 20
-   after warm-up) of the kernel (``ms`` in the JSON line), the plain version
-   and a library yardstick, beside the least time the card could take
-   (``bound_ms``);
+   the text tower (B=256, N=77, D=512, H=8, causal) — in fp32 and bf16; K3
+   and K4 (their backward kernels) at the prompt learners' shapes — the
+   trimmed text tower (N=24, D=512, H=8, causal) at B=100 (a CoOp step on
+   100 classes) and B=256 (a CoCoOp chunk at PROMPT_BUDGET), fp32, and B=256
+   with a bf16 x — each asked for dx only (what the prompt learners launch)
+   and for all seven gradients. Each cell reports the error against the
+   stated tolerance and CUDA-event times (median of 20 after warm-up) of the
+   kernel (``kernel_ms``; ``ms`` in the JSON line carries the same number),
+   the plain version and a library yardstick, beside the least time the
+   card could take (``bound_ms``);
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224) and an
-   ``encode_text`` (256 prompts) with random weights, through the kernels and
-   through the plain versions, compared;
+   ``encode_text`` (256 prompts) with random weights, and the gradient of a
+   CoOp-shaped loss with respect to 100 prompts' embeddings (N=24) through
+   the text tower, each through the kernels and through the plain versions,
+   compared;
 4. trainer: the Adapter + GP flow of ``train.py --use-gp`` on ViT-B/16
    (``build_trainer(config, dm)`` → ``trainer.train()``) over an in-memory
    synthetic dataset, checking metrics.json and that every frozen encode
    launched K1 and K2;
-5. output: one ``{"kernels": [...]}`` line, then as the last line
+5. CoOp: ``Adapter-CoOp`` on ViT-B/16 over 100 synthetic classes (4 shots,
+   n_ctx 16, batch 32, 2 epochs), checking metrics.json, that the context
+   moved, and that every step launched K1-K4 in each of the 12 blocks;
+6. CoCoOp: ``Adapter-CoCoOp`` on the same 100 classes (1 shot, 1 epoch),
+   the same checks, K1/K2 counted twice per block and chunk (the forward
+   and its recompute under ``torch.utils.checkpoint``);
+7. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
+
+Each of phases 4-6 sets the launch counts to 0 just before it runs and
+reads them just after; a kernel's ``launches`` in the JSON line is the sum
+over those three runs, and ``launches_by_path`` gives each.
 """
 
 from __future__ import annotations
@@ -49,14 +66,24 @@ PEAKS = {
 }
 
 # kernel → (source, TPU kernel replaced)
+CSRC = "clip_gp_tpu_torch/csrc/"
 KERNELS = {
     "fused_ln_attention_block": (
-        "clip_gp_tpu_torch/csrc/ln_gemm.cu + clip_gp_tpu_torch/csrc/attention.cu",
+        f"{CSRC}ln_gemm.cu + {CSRC}attention.cu",
         "clip_gp_tpu/ops/flash_attention.py:845",
     ),
     "fused_ln_mlp": (
-        "clip_gp_tpu_torch/csrc/ln_gemm.cu",
+        f"{CSRC}ln_gemm.cu",
         "clip_gp_tpu/ops/flash_attention.py:329",
+    ),
+    "ln_attn_bwd": (
+        f"{CSRC}gemm_bwd.cu + {CSRC}attention_bwd.cu + {CSRC}ln_bwd.cu "
+        f"+ {CSRC}ln_gemm.cu (ln_stats)",
+        "clip_gp_tpu/ops/flash_attention.py:668",
+    ),
+    "ln_mlp_bwd": (
+        f"{CSRC}gemm_bwd.cu + {CSRC}ln_bwd.cu + {CSRC}ln_gemm.cu (ln_stats)",
+        "clip_gp_tpu/ops/flash_attention.py:476",
     ),
 }
 
@@ -77,6 +104,20 @@ SHAPES = [
 # both sides, so a different summation order can flip one rounding: one bf16
 # ulp, at most 2^-7 of the value, plus 2^-6 absolute for values near zero.
 TOLERANCES = {"fp32": (1e-4, 1e-4), "bf16": (2.0**-6, 2.0**-7)}
+# (name, batch, tokens, width, heads, x dtype) of the backward cells: the
+# trimmed text tower of the prompt learners (n_ctx 16 + a class name covers
+# 24 positions), a CoOp step on 100 classes and a CoCoOp chunk of 256 prompts
+BWD_SHAPES = [
+    ("coop", 100, 24, 512, 8, "fp32"),
+    ("cocoop", 256, 24, 512, 8, "fp32"),
+    ("cocoop", 256, 24, 512, 8, "bf16"),
+]
+# K3/K4 kernel vs plain: both recompute the block in fp32 and sum up to
+# T = B·N rows of fp32 products into each weight gradient, in other orders;
+# the error scales with the gradient's largest value. Allowed, elementwise:
+# 1e-4 x (max |plain| + |plain|), or one bf16 ulp of that for a gradient
+# that comes out in bf16 (dx of a bf16 x).
+BWD_RTOL = {"fp32": 1e-4, "bf16": 2.0**-7}
 # encoded features after 12 (or 12 text) layers, kernels vs plain, fp32:
 # the fp32 per-block drift above (~1e-5 of the values) compounds over 12
 # blocks; allowed: 1e-4 of the largest feature
@@ -137,11 +178,13 @@ def phase_build():
     log(f"[build] kernels built in {time.perf_counter() - start:.2f} s "
         f"({_build.BUILD_DIR})")
     if not _build.last_build["cached"]:
-        ptxas = _build.last_build["ptxas"]
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-        spills = [int(s) for s in re.findall(r"(\d+) bytes spill", ptxas)]
-        log(f"[build] ptxas: {len(regs)} kernels, at most {max(regs)} "
-            f"registers a thread, {sum(spills)} bytes of spills")
+        # nvcc's -Xptxas -v output, one "== <source>" section per file
+        for section in _build.last_build["ptxas"].split("== ")[1:]:
+            source, _, ptxas = section.partition("\n")
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+            spills = [int(s) for s in re.findall(r"(\d+) bytes spill", ptxas)]
+            log(f"[build] ptxas {source}: {len(regs)} kernels, {min(regs)}-"
+                f"{max(regs)} registers a thread, {sum(spills)} bytes of spills")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -289,6 +332,7 @@ def phase_kernels(device, peaks):
                     "max_abs_err": max_abs,
                     "max_rel_err": max_rel,
                     "tol": {"atol": atol, "rtol": rtol},
+                    "kernel_ms": ms,
                     "ms": ms,
                     "plain_ms": plain_ms,
                     "library_ms": library_ms,
@@ -305,6 +349,139 @@ def phase_kernels(device, peaks):
                                        "its plain version past the tolerance")
                 cells.append(cell)
             del p, runs
+    return cells
+
+
+def _bwd_cost(kernel, b, n, d, itemsize, param_grads):
+    """(FLOPs, bytes) of one backward call: x and dout read once, the
+    weights once, dx (and with ``param_grads`` every parameter gradient)
+    written once. The math is fp32 whatever x's type."""
+    t = b * n
+    act = 3 * t * d * itemsize  # x, dout in; dx out
+    if kernel == "ln_attn_bwd":
+        flops = (22 if param_grads else 14) * t * d * d + 12 * b * n * n * d
+        params = 4 * d * d * itemsize + 3 * d * itemsize + 2 * d * 4
+        extra = n * n * 4  # the mask
+        grads = params + d * 4  # ... and db_out, fp32
+    else:
+        flops = (40 if param_grads else 24) * t * d * d
+        params = 8 * d * d * itemsize + 4 * d * 4 + 2 * d * 4
+        extra = 0
+        grads = params + d * 4  # ... and db_proj, fp32
+    return flops, act + params + extra + (grads if param_grads else 0)
+
+
+def _compare_grads(got, ref):
+    """(max abs error, max error relative to max|ref| + |ref|, every error
+    within BWD_RTOL of that) over the gradients compared."""
+    import torch
+
+    max_abs = max_rel = 0.0
+    ok = True
+    for out, expected in zip(got, ref):
+        rtol = BWD_RTOL["bf16" if out.dtype == torch.bfloat16 else "fp32"]
+        out, expected = out.float(), expected.float()
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError("non-finite gradient")
+        diff = (out - expected).abs()
+        limit = (expected.abs().max() + expected.abs()).clamp_min(1e-30)
+        max_abs = max(max_abs, diff.max().item())
+        max_rel = max(max_rel, (diff / limit).max().item())
+        ok = ok and bool((diff <= rtol * limit).all())
+    return max_abs, max_rel, ok
+
+
+def _bwd_library(kernel, p, heads, param_grads):
+    """The block's forward from library calls, recorded by autograd once;
+    returns a function that runs only its backward (the yardstick: PyTorch
+    keeps the forward's activations, the kernels recompute them)."""
+    import torch
+
+    names = (["x", "ln_scale", "ln_bias", "w_qkv_t", "b_qkv", "w_out_t", "b_out"]
+             if kernel == "ln_attn_bwd" else
+             ["x", "ln_scale", "ln_bias", "w_fc_t", "b_fc", "w_proj_t", "b_proj"])
+    q = dict(p)
+    leaves = []
+    for name in names if param_grads else ["x"]:
+        q[name] = p[name].detach().clone().requires_grad_(True)
+        leaves.append(q[name])
+    with torch.enable_grad():
+        out = _k1_library(q, heads) if kernel == "ln_attn_bwd" else _k2_library(q)
+    dout = p["dout"]
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def phase_bwd_kernels(device, peaks):
+    """K3/K4 cells: kernel vs plain on all seven gradients, timed dx-only
+    and with every gradient."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    cells = []
+    for shape_name, b, n, d, heads, dtype_name in BWD_SHAPES:
+        dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+        p = _block_inputs(b, n, d, True, dtype, device, seed=100 + len(cells))
+        p["dout"] = torch.randn(b, n, d, generator=torch.Generator().manual_seed(
+            len(cells))).to(device, dtype)
+        for key in ("w_qkv", "w_out", "w_fc", "w_proj"):
+            p[key + "_t"] = p[key].t().contiguous()
+        args = {
+            "ln_attn_bwd": (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"],
+                            p["b_qkv"], p["w_out"], p["mask"], heads, p["dout"]),
+            "ln_mlp_bwd": (p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"],
+                           p["b_fc"], p["w_proj"], p["dout"]),
+        }
+        plain = {"ln_attn_bwd": fa.ln_attn_bwd_plain, "ln_mlp_bwd": fa.ln_mlp_bwd_plain}
+        for kernel in ("ln_attn_bwd", "ln_mlp_bwd"):
+            a = args[kernel]
+            run_plain = lambda: plain[kernel](*a)  # noqa: E731
+            ref = run_plain()
+            plain_ms = time_ms(run_plain)
+            for param_grads in (False, True):
+                run_kernel = lambda: getattr(fa, kernel)(  # noqa: E731
+                    *a, param_grads=param_grads)
+                got = run_kernel()
+                torch.cuda.synchronize()
+                max_abs, max_rel, ok = _compare_grads(
+                    got if param_grads else got[:1], ref)
+                ms = time_ms(run_kernel)
+                library_ms = time_ms(_bwd_library(kernel, p, heads, param_grads))
+                flops, nbytes = _bwd_cost(kernel, b, n, d, p["x"].element_size(),
+                                          param_grads)
+                t_ops = flops / peaks["fp32"] * 1e3
+                t_bytes = nbytes / peaks["bytes"] * 1e3
+                grads = "all" if param_grads else "dx"
+                cell = {
+                    "name": f"{kernel}[text-{shape_name},B={b},N={n},{dtype_name},"
+                            f"{grads}]",
+                    "kernel": kernel,
+                    "route": "cuda",
+                    "source": KERNELS[kernel][0],
+                    "replaces": KERNELS[kernel][1],
+                    "shape": [b, n, d, heads],
+                    "dtype": dtype_name,
+                    "grads": grads,
+                    "max_abs_err": max_abs,
+                    "max_rel_err": max_rel,
+                    "tol": {"of_max_plus_abs": BWD_RTOL},
+                    "kernel_ms": ms,
+                    "ms": ms,
+                    "plain_ms": plain_ms,
+                    "library_ms": library_ms,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                }
+                log(f"[kernels] {cell['name']}: max_abs_err {max_abs:.3e} "
+                    f"max_rel_err {max_rel:.3e} (tol {BWD_RTOL} x (max|plain| + "
+                    f"|plain|)) kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                    f"library_ms {library_ms:.4f} bound_ms {cell['bound_ms']:.4f} "
+                    f"({cell['bound_by']})")
+                if not ok:
+                    raise RuntimeError(f"{cell['name']}: kernel disagrees with "
+                                       "its plain version past the tolerance")
+                cells.append(cell)
+        del p, args
     return cells
 
 
@@ -354,7 +531,59 @@ def phase_towers(device, backbone="ViT-B/16", n_images=32, n_prompts=256):
             f"{TOWER_TOL:.1e} x max |feature|)")
         if err > TOWER_TOL * scale:
             raise RuntimeError(f"{what}: kernel tower disagrees with the plain one")
+    _tower_grad(model, device)
     del model
+
+
+def _tower_grad(model, device, n_prompts=100, n=24, n_images=32):
+    """The gradient of a CoOp-shaped loss (cross-entropy of 100 x cosine
+    logits) with respect to the prompt embeddings, through K1-K4 and
+    through every block's plain forward and plain backward, compared."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    arch = model.arch
+    g = torch.Generator().manual_seed(2)
+    embeds = (0.02 * torch.randn(n_prompts, n, arch.transformer_width,
+                                 generator=g)).to(device)
+    eot = torch.randint(8, n, (n_prompts,), generator=g).to(device)
+    img = F.normalize(torch.randn(n_images, arch.embed_dim, generator=g), dim=-1)
+    img = img.to(device)
+    labels = torch.randint(0, n_prompts, (n_images,), generator=g).to(device)
+
+    def grad():
+        e = embeds.clone().requires_grad_(True)
+        text = F.normalize(model.text_features_from_embeddings(e, eot), dim=-1)
+        loss = F.cross_entropy(100.0 * img @ text.T, labels)
+        return torch.autograd.grad(loss, e)[0]
+
+    fa.reset_launch_counts()
+    got = grad()
+    launches = dict(fa.LAUNCHES)
+    with mock.patch.object(fa, "_ln_attention_forward", fa.ln_attention_block_plain), \
+            mock.patch.object(fa, "_ln_mlp_forward", fa.ln_mlp_plain), \
+            mock.patch.object(fa, "ln_attn_bwd",
+                              lambda *a, param_grads: fa.ln_attn_bwd_plain(*a)), \
+            mock.patch.object(fa, "ln_mlp_bwd",
+                              lambda *a, param_grads: fa.ln_mlp_bwd_plain(*a)):
+        ref = grad()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("tower gradient: non-finite values")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    log(f"[towers] {arch.name} text-tower grad d(loss)/d(embeds) "
+        f"{tuple(got.shape)} fp32: kernels vs plain max_abs_err {err:.3e} (max "
+        f"|grad| {scale:.3e}; tol {TOWER_TOL:.1e} x max |grad|); launches "
+        f"{launches}")
+    if err > TOWER_TOL * scale:
+        raise RuntimeError("tower gradient: kernels disagree with the plain versions")
+    layers = arch.transformer_layers
+    if min(launches.values()) < layers:
+        raise RuntimeError(f"tower gradient: expected each kernel {layers} times, "
+                           f"got {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -379,12 +608,13 @@ class _ArrayLoader:
 
 
 class InMemoryDataManager:
-    """The synthetic dataset's numpy images at full resolution, split per
-    class into ``shots`` train images and the rest test, with no transform
+    """The synthetic dataset's numpy images (``num_classes`` classes, "pattern
+    c" past the first four) at full resolution, split per class into
+    ``shots`` train images and the rest test, with no transform
     (INPUT.TRANSFORMS has no augmentation, so the test transform of a
     decoded image at the input size is the identity)."""
 
-    def __init__(self, config, images_per_class):
+    def __init__(self, config, images_per_class, num_classes=4):
         import numpy as np
 
         from clip_gp_tpu_torch.data.datasets.synthetic import (
@@ -397,7 +627,8 @@ class InMemoryDataManager:
         size = config.input.size[0]
         train, test = ([], []), ([], [])
         items = {"train": [], "test": []}
-        for c, i, img in synthetic_images(4, images_per_class, size, config.seed):
+        for c, i, img in synthetic_images(num_classes, images_per_class, size,
+                                          config.seed):
             split, arrays = ("train", train) if i < shots else ("test", test)
             arrays[0].append(img)
             arrays[1].append(c)
@@ -417,51 +648,93 @@ class InMemoryDataManager:
         return self.train_loader_x
 
 
-def phase_trainer(backbone="ViT-B/16"):
-    import numpy as np
-
+def _config(backbone, trainer_name, shots, epochs):
     from clip_gp_tpu_torch.core.config import Config
-    from clip_gp_tpu_torch.core.registry import build_trainer
-    from clip_gp_tpu_torch.core.seeding import set_random_seed
-    from clip_gp_tpu_torch.methods import common
     from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
-    import clip_gp_tpu_torch.methods  # noqa: F401  (registers the trainers)
-    from clip_gp_tpu_torch.ops import flash_attention as fa
 
     os.environ["CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS"] = "1"
     c = Config()
+    c.trainer_name = trainer_name
     c.dataset.name = "Synthetic"
-    c.dataset.num_shots = 4
+    c.dataset.num_shots = shots
     arch = ARCHITECTURES[backbone]
     c.model.backbone_name = backbone
     c.input.size = (arch.image_resolution, arch.image_resolution)
     c.input.transforms = ["normalize"]
     c.dataloader.batch_size_train = 32
     c.dataloader.batch_size_test = 32
-    c.adapter.use_gp = True
-    c.adapter.num_templates = 16
-    c.adapter.clip_adapter_epochs = 3
-    c.optim.name = "adamw"
-    c.optim.lr = 1e-3
+    c.adapter.clip_adapter_epochs = epochs
+    c.optim.max_epoch = epochs
     c.train.print_freq = 1
     c.seed = 1
+    return c, arch
+
+
+def _train(c, dm, on_build=None):
+    """``build_trainer(c, dm).train()`` with the launch counts set to 0 just
+    before and read just after: (launches, metrics, seconds, trainer).
+    ``on_build`` sees the trainer right after its ``build_model``."""
+    import numpy as np
+    import torch
+
+    from clip_gp_tpu_torch.core.registry import build_trainer
+    from clip_gp_tpu_torch.core.seeding import set_random_seed
+    import clip_gp_tpu_torch.methods  # noqa: F401  (registers the trainers)
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
         c.output_dir = out_dir
         set_random_seed(c.seed)
-        dm = InMemoryDataManager(c, images_per_class=20)
-        n_train = len(dm.dataset.train_x)
-        n_test = len(dm.dataset.test)
+        trainer = build_trainer(c, dm)
+        if on_build is not None:
+            build = trainer.build_model
+
+            def build_model():
+                build()
+                on_build(trainer)
+
+            trainer.build_model = build_model
         fa.reset_launch_counts()
         start = time.perf_counter()
-        trainer = build_trainer(c, dm)
         trainer.train()
         seconds = time.perf_counter() - start
         launches = dict(fa.LAUNCHES)
         with open(os.path.join(out_dir, "metrics.json")) as f:
             metrics = json.load(f)["metrics"]
+    log(f"[{c.trainer_name}] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for key in ("top1_acc", "macro_f1", "ece", "aece"):
         if not np.isfinite(metrics[key]):
-            raise RuntimeError(f"metrics.json: {key} = {metrics[key]}")
+            raise RuntimeError(f"{c.trainer_name} metrics.json: {key} = {metrics[key]}")
+    return launches, metrics, seconds, trainer
+
+
+def _check_launches(what, launches, need):
+    log(f"[{what}] launches {launches} (need at least {need})")
+    for name, count in need.items():
+        if launches[name] < count:
+            raise RuntimeError(f"{what}: {name} launched {launches[name]} times on "
+                               f"the main path; expected at least {count}")
+
+
+def _metrics_line(metrics):
+    return (f"top1_acc {metrics['top1_acc']:.2f} macro_f1 {metrics['macro_f1']:.2f} "
+            f"ece {metrics['ece']:.2f} aece {metrics['aece']:.2f}")
+
+
+def phase_trainer(backbone="ViT-B/16"):
+    """The Adapter + GP flow; every frozen encode launches K1 and K2."""
+    from clip_gp_tpu_torch.methods import common
+
+    c, arch = _config(backbone, "Adapter", shots=4, epochs=3)
+    c.adapter.use_gp = True
+    c.adapter.num_templates = 16
+    c.optim.name = "adamw"
+    c.optim.lr = 1e-3
+    dm = InMemoryDataManager(c, images_per_class=20)
+    n_train, n_test = len(dm.dataset.train_x), len(dm.dataset.test)
+    launches, metrics, seconds, _ = _train(c, dm)
     batch = common.EXTRACT_DEVICE_BATCH
     image_encodes = math.ceil(n_test / batch) + math.ceil(n_train / batch)
     text_encodes = math.ceil(4 * c.adapter.num_templates / 256)
@@ -469,14 +742,86 @@ def phase_trainer(backbone="ViT-B/16"):
             + arch.transformer_layers * text_encodes)
     log(f"[trainer] Adapter+GP {backbone}: {n_train} train / {n_test} test "
         f"images, {c.adapter.num_templates} templates, "
-        f"{c.adapter.clip_adapter_epochs} epochs in {seconds:.2f} s; top1_acc "
-        f"{metrics['top1_acc']:.2f} macro_f1 {metrics['macro_f1']:.2f} ece "
-        f"{metrics['ece']:.2f} aece {metrics['aece']:.2f}; launches {launches} "
-        f"(need >= {need} each)")
-    for name, count in launches.items():
-        if count < need:
-            raise RuntimeError(f"{name} launched {count} times on the main path; "
-                               f"expected at least {need}")
+        f"{c.adapter.clip_adapter_epochs} epochs in {seconds:.2f} s; "
+        f"{_metrics_line(metrics)}")
+    _check_launches("trainer", launches, {"fused_ln_attention_block": need,
+                                          "fused_ln_mlp": need})
+    return launches
+
+
+def _snapshot(trainer):
+    """A copy of the trainer's parameters, flat."""
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v.detach().clone()
+
+    return dict(flat(trainer.params))
+
+
+def _moved(before, trainer):
+    """Largest change of each parameter since ``before``."""
+    after = _snapshot(trainer)
+    return {k: (after[k] - before[k]).abs().max().item() for k in before}
+
+
+def phase_coop(backbone="ViT-B/16", classes=100):
+    """Adapter-CoOp: every step encodes its images (K1/K2 through the image
+    tower), then runs the text tower over the K prompts forward (K1/K2) and
+    backward (K4/K3) in each of the 12 blocks."""
+    c, arch = _config(backbone, "Adapter-CoOp", shots=4, epochs=2)
+    c.adapter.n_ctx = 16
+    dm = InMemoryDataManager(c, images_per_class=5, num_classes=classes)
+    before = {}
+    launches, metrics, seconds, trainer = _train(
+        c, dm, on_build=lambda t: before.update(_snapshot(t)))
+    steps = c.adapter.clip_adapter_epochs * len(dm.train_loader_x)
+    moved = _moved(before, trainer)
+    log(f"[coop] Adapter-CoOp {backbone}: {classes} classes, "
+        f"{len(dm.dataset.train_x)} train / {len(dm.dataset.test)} test images, "
+        f"n_ctx {c.adapter.n_ctx}, {steps} steps in {seconds:.2f} s; "
+        f"{_metrics_line(metrics)}; parameters moved by up to {moved}")
+    layers = arch.transformer_layers
+    _check_launches("coop", launches, {
+        "fused_ln_attention_block": 2 * layers * steps, "fused_ln_mlp": 2 * layers * steps,
+        "ln_attn_bwd": layers * steps, "ln_mlp_bwd": layers * steps,
+    })
+    if not moved["ctx"] > 0:
+        raise RuntimeError("coop: the context did not move")
+    return launches
+
+
+def phase_cocoop(backbone="ViT-B/16", classes=100):
+    """Adapter-CoCoOp: each step runs its images' K prompts through the text
+    tower in chunks of PROMPT_BUDGET // K images, each chunk a checkpoint
+    segment: K1/K2 forward, again in the backward's recompute, then K4/K3,
+    in each of the 12 blocks."""
+    from clip_gp_tpu_torch.methods import cocoop
+
+    c, arch = _config(backbone, "Adapter-CoCoOp", shots=1, epochs=1)
+    dm = InMemoryDataManager(c, images_per_class=2, num_classes=classes)
+    before = {}
+    launches, metrics, seconds, trainer = _train(
+        c, dm, on_build=lambda t: before.update(_snapshot(t)))
+    chunk = max(1, cocoop.PROMPT_BUDGET // classes)
+    chunks = c.adapter.clip_adapter_epochs * sum(
+        math.ceil(len(batch["label"]) / chunk) for batch in dm.train_loader_x)
+    moved = _moved(before, trainer)
+    log(f"[cocoop] Adapter-CoCoOp {backbone}: {classes} classes, "
+        f"{len(dm.dataset.train_x)} train / {len(dm.dataset.test)} test images, "
+        f"{chunks} chunks of {chunk} images x {classes} prompts in "
+        f"{seconds:.2f} s; {_metrics_line(metrics)}; parameters moved by up to "
+        f"{moved}")
+    layers = arch.transformer_layers
+    _check_launches("cocoop", launches, {
+        "fused_ln_attention_block": 2 * layers * chunks,
+        "fused_ln_mlp": 2 * layers * chunks,
+        "ln_attn_bwd": layers * chunks, "ln_mlp_bwd": layers * chunks,
+    })
+    if not all(v > 0 for v in moved.values()):
+        raise RuntimeError(f"cocoop: a parameter did not move: {moved}")
     return launches
 
 
@@ -494,11 +839,14 @@ def main() -> int:
         return 2
     device, smi = phase_build()
     peaks = card_peaks(torch.cuda.get_device_name(0))
-    cells = phase_kernels(device, peaks)
+    cells = phase_kernels(device, peaks) + phase_bwd_kernels(device, peaks)
     phase_towers(device)
-    launches = phase_trainer()
+    by_path = {"adapter_gp": phase_trainer(), "coop": phase_coop(),
+               "cocoop": phase_cocoop()}
     for cell in cells:
-        cell["launches"] = launches[cell["kernel"]]
+        counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
+        cell["launches"] = sum(counts.values())
+        cell["launches_by_path"] = counts
     log(json.dumps({"kernels": cells}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,4 +1,5 @@
 """Method registration: importing this package registers the ported trainers
-(Adapter; the other five heads of the JAX package are not ported yet)."""
+(Adapter, Adapter-CoOp, Adapter-CoCoOp; the JAX package's CLIP-Adapter,
+TaskRes and Tip-Adapter heads are not ported yet)."""
 
-from clip_gp_tpu_torch.methods import adapter  # noqa: F401
+from clip_gp_tpu_torch.methods import adapter, cocoop, coop  # noqa: F401

@@ -6,7 +6,9 @@ and layouts (right-multiply ``w_qkv [D, 3D]`` packing, NHWC images at the
 public functions), and the same numerics (LayerNorm and softmax in fp32
 whatever the compute dtype). Every residual block runs K1 then K2
 (``ops/flash_attention.py``): hand-written CUDA kernels on a GPU, their plain
-PyTorch versions on the CPU.
+PyTorch versions on the CPU. The text tower is differentiable: the prompt
+learners (CoOp, CoCoOp) backpropagate through it to their context vectors,
+and each block's backward runs K4 then K3.
 
 Not ported yet: the ModifiedResNet tower (RN50…RN50x16) and
 ``encode_image_all_layers``.
@@ -15,6 +17,7 @@ Not ported yet: the ModifiedResNet tower (RN50…RN50x16) and
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -157,13 +160,16 @@ class ResidualAttentionBlock(nn.Module):
 
     def _weights(self, dt: torch.dtype) -> Tuple[torch.Tensor, ...]:
         """(w_qkv, b_qkv, w_out, b_out, c_fc.w, c_proj.w) in the working type.
-        The weights are frozen, so a copy in another dtype is made once and
-        kept until the module is loaded or moved again."""
+        Frozen weights are copied to another dtype once and the copy is kept
+        until the module is loaded or moved again; a weight that autograd
+        tracks is cast on every call, so its gradient reaches it."""
+        a, m = self.attn, self.mlp
+        src = (a.w_qkv, a.b_qkv, a.w_out, a.b_out, m.c_fc.w, m.c_proj.w)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in src):
+            return tuple(t.to(dt) for t in src)
         if dt in self._cast:
             return self._cast[dt]
-        a, m = self.attn, self.mlp
-        w = tuple(t.to(dt) for t in (a.w_qkv, a.b_qkv, a.w_out, a.b_out,
-                                     m.c_fc.w, m.c_proj.w))
+        w = tuple(t.to(dt) for t in src)
         if dt != a.w_qkv.dtype:
             self._cast[dt] = w
         return w
@@ -252,6 +258,17 @@ def causal_mask(n: int, device=None) -> torch.Tensor:
     )
 
 
+def prompt_tower_dtype() -> torch.dtype:
+    """Compute dtype of the differentiated prompt tower (CoOp/CoCoOp train
+    and eval text encodes): ``CLIP_GP_TPU_TORCH_PROMPT_TOWER_DTYPE`` is
+    ``float32`` (the default, the reference's fp32 tower) or
+    ``bf16``/``bfloat16`` (bf16 products with fp32 LN, softmax and
+    gradients, and fp32 master parameters), as the JAX package's
+    ``CLIP_GP_TPU_PROMPT_TOWER_DTYPE``."""
+    v = os.environ.get("CLIP_GP_TPU_TORCH_PROMPT_TOWER_DTYPE", "float32").lower()
+    return torch.bfloat16 if v in ("bf16", "bfloat16") else torch.float32
+
+
 class CLIP(nn.Module):
     """Both towers plus the text embeddings and logit scale. Parameter names
     follow the JAX pytree (``visual.transformer.blocks.<i>.attn.w_qkv`` is
@@ -284,7 +301,8 @@ class CLIP(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
     ) -> torch.Tensor:
         """Text transformer over token embeddings [B,L,W], pooled at
-        ``eot_index`` [B] (ref: utils/trainer.py:178-194)."""
+        ``eot_index`` [B] (ref: utils/trainer.py:178-194). Differentiable
+        in ``token_embeds`` and in any tower weight that requires grad."""
         x = token_embeds.to(compute_dtype)
         n = x.shape[1]
         # slice to the (possibly trimmed) sequence length; the causal mask

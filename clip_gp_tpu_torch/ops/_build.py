@@ -37,6 +37,12 @@ SIGNATURES = {
     "cgt_gemm": [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p],
     "cgt_attention": [_c_void_p, _c_void_p, _c_void_p] + [_c_int] * 5
     + [_c_void_p],
+    "cgt_gemm_bwd": [_c_void_p] * 8 + [_c_int] * 6 + [_c_void_p],
+    "cgt_attention_bwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
+    "cgt_ln_bwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
+    "cgt_ln_param_grads": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
+    "cgt_colsum": [_c_void_p] * 3 + [_c_int] * 4 + [_c_void_p],
+    "cgt_sum_parts": [_c_void_p, _c_void_p, _c_int, _c_int, _c_void_p],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -122,7 +122,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tfa.fused_ln_mlp(_t(p["x"]), _t(p["ln_scale"]), _t(p["ln_bias"]),
                      _t(p["w_fc"]), _t(p["b_fc"]), _t(p["w_proj"]),
                      _t(p["b_proj"]))
-    assert tfa.LAUNCHES == {"fused_ln_attention_block": 0, "fused_ln_mlp": 0}
+    assert set(tfa.LAUNCHES) == {"fused_ln_attention_block", "fused_ln_mlp",
+                                 "ln_attn_bwd", "ln_mlp_bwd"}
+    assert not any(tfa.LAUNCHES.values())
 
 
 def test_wrapper_rejects_unsupported_dtype():
@@ -140,12 +142,17 @@ def test_wrapper_rejects_mismatched_weight_dtype():
 
 
 def test_wrapper_rejects_grad_requiring_input():
+    """Every input but the mask is differentiable (K3 gives their
+    gradients); a mask that needs a gradient is refused."""
     args = _k1_args()
     args[3].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tfa.fused_ln_attention_block(*args)
-    with torch.no_grad():  # the frozen encodes: no autograd, so allowed
-        tfa.fused_ln_attention_block(*args)
+    tfa.fused_ln_attention_block(*args).sum().backward()
+    assert args[3].grad is not None
+    mask = torch.zeros(9, 9, requires_grad=True)
+    with pytest.raises(RuntimeError, match="mask"):
+        tfa.fused_ln_attention_block(*args, mask)
+    with torch.no_grad():  # no autograd: the mask is a constant
+        tfa.fused_ln_attention_block(*args, mask)
 
 
 @pytest.mark.parametrize("index", [1, 4, 6], ids=["ln_scale", "b_qkv", "b_out"])

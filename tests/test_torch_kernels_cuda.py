@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1 and K2 against their plain PyTorch
+"""The hand-written CUDA kernels K1-K4 against their plain PyTorch
 versions, on the card. Every test here needs an NVIDIA GPU and nvcc and
 skips without them. The file imports neither jax nor the JAX package, so it
 runs on a machine with only PyTorch and the CUDA toolkit:
@@ -11,7 +11,10 @@ single token, the 256-token limit, a causal mask, and an MLP width that is
 not a multiple of the 128-column tile. Tolerances are chip_smoke.py's: fp32
 1e-4, since both sides sum the same fp32 products in other orders; bf16 one
 bf16 ulp (2^-7 relative plus 2^-6 absolute), since both round to bf16 at the
-same points and another summation order can flip one rounding.
+same points and another summation order can flip one rounding. The backward
+kernels K3/K4 sum up to T = B·N rows of products into each weight gradient,
+so their absolute tolerance scales with the gradient's largest value: 1e-4
+of it (fp32) or one bf16 ulp of it (a gradient that comes out in bf16).
 """
 
 import pytest
@@ -109,6 +112,82 @@ def test_k2_kernel_matches_plain(device, shape, dtype):
         _assert_close(_k2(p), _k2(p, fa.ln_mlp_plain), dtype)
 
 
+def _assert_grad_close(out, ref, name):
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape, name
+    assert bool(torch.isfinite(out).all()), name
+    scale = ref.float().abs().max().item()
+    rtol = 2.0**-7 if out.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=rtol * scale, msg=name)
+
+
+K3_SHAPES = [  # (batch, tokens, width, heads, causal)
+    (3, 1, 128, 2, True),
+    (3, 11, 128, 2, True),
+    (100, 24, 512, 8, True),
+    (2, 77, 512, 8, True),
+    (2, 197, 768, 12, False),
+    (1, 256, 256, 4, False),
+]
+K4_SHAPES = [  # (batch, tokens, width, hidden)
+    (3, 1, 128, 512),
+    (3, 11, 128, 512),
+    (100, 24, 512, 2048),
+    (2, 33, 200, 808),
+]
+GRADS = [True, False]
+
+
+def _dout(p, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(p["x"].shape, generator=g).to(p["x"].device, p["x"].dtype)
+
+
+@pytest.mark.parametrize("param_grads", GRADS, ids=["all", "dx-only"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
+def test_k3_kernel_matches_plain(device, shape, dtype, param_grads):
+    b, n, d, heads, causal = shape
+    p = _inputs(b, n, d, dtype, device, causal=causal)
+    args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
+            p["w_out"], p["mask"], heads, _dout(p))
+    got = fa.ln_attn_bwd(*args, param_grads=param_grads)
+    ref = fa.ln_attn_bwd_plain(*args)
+    for i, (out, expected) in enumerate(zip(got, ref)):
+        if param_grads or i == 0:
+            _assert_grad_close(out, expected, i)
+        else:
+            assert out is None
+
+
+@pytest.mark.parametrize("param_grads", GRADS, ids=["all", "dx-only"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=str)
+def test_k4_kernel_matches_plain(device, shape, dtype, param_grads):
+    b, n, d, hidden = shape
+    p = _inputs(b, n, d, dtype, device, hidden=hidden)
+    args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"],
+            p["w_proj"], _dout(p))
+    got = fa.ln_mlp_bwd(*args, param_grads=param_grads)
+    ref = fa.ln_mlp_bwd_plain(*args)
+    for i, (out, expected) in enumerate(zip(got, ref)):
+        if param_grads or i == 0:
+            _assert_grad_close(out, expected, i)
+        else:
+            assert out is None
+
+
+def test_backward_kernels_repeat_bit_for_bit(device):
+    """No atomics: the cross-row sums take a fixed order."""
+    p = _inputs(100, 24, 512, torch.float32, device, causal=True)
+    args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
+            p["w_out"], p["mask"], 8, _dout(p))
+    first, second = fa.ln_attn_bwd(*args), fa.ln_attn_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_each_call_on_the_card_counts_one_launch(device):
     p = _inputs(2, 9, 128, torch.float32, device)
     fa.reset_launch_counts()
@@ -116,14 +195,35 @@ def test_each_call_on_the_card_counts_one_launch(device):
         _k1(p, 2)
         _k1(p, 2)
         _k2(p)
-    assert fa.LAUNCHES == {"fused_ln_attention_block": 2, "fused_ln_mlp": 1}
+    p["x"].requires_grad_(True)
+    _k2(p).sum().backward()
+    assert fa.LAUNCHES == {"fused_ln_attention_block": 2, "fused_ln_mlp": 2,
+                           "ln_attn_bwd": 0, "ln_mlp_bwd": 1}
 
 
-def test_grad_requiring_input_on_the_card_raises(device):
-    p = _inputs(1, 9, 128, torch.float32, device)
-    p["w_fc"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        _k2(p)
+def test_grad_requiring_input_on_the_card_runs_the_backward_kernels(device):
+    p = _inputs(4, 24, 128, torch.float32, device, causal=True)
+    p["x"].requires_grad_(True)
+    fa.reset_launch_counts()
+    out = _k2({**p, "x": _k1(p, 2)})
+    dout = _dout(p)
+    (got,) = torch.autograd.grad(out, p["x"], dout)
+    x = p["x"].detach()
+    h = fa.ln_attention_block_plain(x, p["ln_scale"], p["ln_bias"], p["w_qkv"],
+                                    p["b_qkv"], p["w_out"], p["b_out"], 2, p["mask"])
+    dh = fa.ln_mlp_bwd_plain(h, p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"],
+                             p["w_proj"], dout)[0]
+    expected = fa.ln_attn_bwd_plain(x, p["ln_scale"], p["ln_bias"], p["w_qkv"],
+                                    p["b_qkv"], p["w_out"], p["mask"], 2, dh)[0]
+    _assert_grad_close(got, expected, "dx")
+    assert fa.LAUNCHES["ln_attn_bwd"] == fa.LAUNCHES["ln_mlp_bwd"] == 1
+
+
+def test_grad_requiring_mask_on_the_card_raises(device):
+    p = _inputs(1, 9, 128, torch.float32, device, causal=True)
+    p["mask"] = torch.zeros(9, 9, device=device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="mask"):
+        _k1(p, 2)
 
 
 def test_tower_through_the_kernels_matches_the_plain_tower(device):
