@@ -18,16 +18,18 @@ exits non-zero before printing any result. Phases, each raising on failure:
    trimmed text tower (N=24, D=512, H=8, causal) at B=100 (a CoOp step on
    100 classes) and B=256 (a CoCoOp chunk at PROMPT_BUDGET), fp32, and B=256
    with a bf16 x — each asked for dx only (what the prompt learners launch)
-   and for all seven gradients. Each cell reports the error against the
-   stated tolerance and CUDA-event times (median of 20 after warm-up) of the
-   kernel (``kernel_ms``; ``ms`` in the JSON line carries the same number),
-   the plain version and a library yardstick, beside the least time the
-   card could take (``bound_ms``);
-3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224) and an
-   ``encode_text`` (256 prompts) with random weights, and the gradient of a
-   CoOp-shaped loss with respect to 100 prompts' embeddings (N=24) through
-   the text tower, each through the kernels and through the plain versions,
-   compared;
+   and for all seven gradients; K5 and K6 (the int8 blocks of the serving
+   tower) at ViT-B/16 B=32 and B=512 in bf16 (the serving dtype) and B=32
+   in fp32. Each cell reports the error against the stated tolerance and
+   CUDA-event times (median of 20 after warm-up) of the kernel
+   (``kernel_ms``; ``ms`` in the JSON line carries the same number), the
+   plain version and a library yardstick, beside the least time the card
+   could take (``bound_ms``);
+3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
+   ``encode_image_q8`` (bf16, the same images) and an ``encode_text`` (256
+   prompts) with random weights, and the gradient of a CoOp-shaped loss
+   with respect to 100 prompts' embeddings (N=24) through the text tower,
+   each through the kernels and through the plain versions, compared;
 4. trainer: the Adapter + GP flow of ``train.py --use-gp`` on ViT-B/16
    (``build_trainer(config, dm)`` → ``trainer.train()``) over an in-memory
    synthetic dataset, checking metrics.json and that every frozen encode
@@ -38,12 +40,21 @@ exits non-zero before printing any result. Phases, each raising on failure:
 6. CoCoOp: ``Adapter-CoCoOp`` on the same 100 classes (1 shot, 1 epoch),
    the same checks, K1/K2 counted twice per block and chunk (the forward
    and its recompute under ``torch.utils.checkpoint``);
-7. output: one ``{"kernels": [...]}`` line, then as the last line
+7. serving: the CLI (``clip_gp_tpu_torch.train``) trains the Adapter on
+   ViT-B/16 for one epoch over the Synthetic dataset with checkpoints on
+   (Pillow decode), then serves the run: ``--eval-only`` with
+   ``MODEL.INT8_INFERENCE True`` and the predict entry
+   (``clip_gp_tpu_torch.predict --int8``) over 64 PNGs at 224x224, checking
+   metrics.json, predictions.json, that every ViT block of every int8 image
+   encode launched K5 and K6 and that no image encode launched K1/K2; it
+   prints the int8 and fp32 encode rates on one batch and how often their
+   top-1 agree;
+8. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-6 sets the launch counts to 0 just before it runs and
-reads them just after; a kernel's ``launches`` in the JSON line is the sum
-over those three runs, and ``launches_by_path`` gives each.
+Each of phases 4-7 sets the launch counts to 0 just before each run it
+drives and reads them just after; a kernel's ``launches`` in the JSON line is
+the sum over those runs, and ``launches_by_path`` gives each.
 """
 
 from __future__ import annotations
@@ -60,9 +71,10 @@ import time
 from unittest import mock
 
 # Published dense peaks (NVIDIA data sheet, H100 SXM at 700 W): FLOP/s for
-# fp32 on the CUDA cores and bf16 on the tensor cores, and memory bytes/s.
+# fp32 on the CUDA cores and bf16 on the tensor cores, int8 tensor-core
+# operations/s, and memory bytes/s.
 PEAKS = {
-    "H100": {"fp32": 67e12, "bf16": 989e12, "bytes": 3.35e12},
+    "H100": {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12, "bytes": 3.35e12},
 }
 
 # kernel → (source, TPU kernel replaced)
@@ -84,6 +96,14 @@ KERNELS = {
     "ln_mlp_bwd": (
         f"{CSRC}gemm_bwd.cu + {CSRC}ln_bwd.cu + {CSRC}ln_gemm.cu (ln_stats)",
         "clip_gp_tpu/ops/flash_attention.py:476",
+    ),
+    "q8_ln_attention_block": (
+        f"{CSRC}int8_block.cu + {CSRC}attention.cu",
+        "clip_gp_tpu/ops/int8_block.py:66",
+    ),
+    "q8_ln_mlp": (
+        f"{CSRC}int8_block.cu",
+        "clip_gp_tpu/ops/int8_block.py:194",
     ),
 }
 
@@ -122,6 +142,24 @@ BWD_RTOL = {"fp32": 1e-4, "bf16": 2.0**-7}
 # the fp32 per-block drift above (~1e-5 of the values) compounds over 12
 # blocks; allowed: 1e-4 of the largest feature
 TOWER_TOL = 1e-4
+# (name, batch, tokens, width, heads, x dtype) of the K5/K6 cells: ViT-B/16
+# at 32 images and at the image-encode device batch, in the serving dtype
+# (bf16), and at 32 images in fp32
+Q8_SHAPES = [
+    ("vit-b16", 32, 197, 768, 12, "bf16"),
+    ("vit-b16", 512, 197, 768, 12, "bf16"),
+    ("vit-b16", 32, 197, 768, 12, "fp32"),
+]
+# K5/K6 kernel vs plain: the int8 products are exact on both sides; an fp32
+# sum taken in another order (LN statistics, softmax, p·v) can move one
+# activation across a quantization boundary, which moves the outputs it
+# feeds by one quantization step times the weights (up to ~1e-2 here) and,
+# in fp32, every query of that image. Both working types are held to one
+# bf16 ulp (2^-6 + 2^-7·|plain|) for at least 99.9% of the elements, and a
+# mean |Δ| of at most 1e-3 of the mean |plain|.
+Q8_TOL = {"atol": 2.0**-6, "rtol": 2.0**-7, "share": 0.999, "mean": 1e-3}
+# int8 towers after 12 layers, kernels vs plain: cosine per image
+Q8_TOWER_COS = 0.9999
 
 
 def log(msg: str) -> None:
@@ -485,6 +523,173 @@ def phase_bwd_kernels(device, peaks):
     return cells
 
 
+def _q8_block_inputs(b, n, d, dtype_name, device, seed):
+    """K5/K6 inputs: K1/K2's, with the four products quantized per output
+    channel (``quantize_weight``) and, for the library yardstick, each int8
+    weight also laid out column-major as ``torch._int_mm`` takes it."""
+    import torch
+
+    from clip_gp_tpu_torch.models.quantized import quantize_weight
+
+    p = _block_inputs(b, n, d, False, torch.float32, device, seed)
+    p["x"] = p["x"].to({"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name])
+    for key in ("w_qkv", "w_fc", "w_proj"):
+        p[key] = quantize_weight(p[key])
+        p[key]["cm"] = p[key]["q"].t().contiguous().t()
+    p["w_out"] = quantize_weight(p["w_out"])
+    dh = 64
+    p["w_out"]["cm"] = [p["w_out"]["q"][i:i + dh].t().contiguous().t()
+                        for i in range(0, d, dh)]
+    return p
+
+
+def _k5_library(p, heads):
+    """K5's function from library calls: F.layer_norm, torch._int_mm for
+    each product (one per head for the out-projection) and
+    scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_gp_tpu_torch.ops.int8_block import quantize_rows
+
+    x = p["x"]
+    b, n, d = x.shape
+    dh = d // heads
+    x32 = x.float().view(b * n, d)
+    hq, hs = quantize_rows(F.layer_norm(x32, (d,), p["ln_scale"], p["ln_bias"]))
+    wq, wo = p["w_qkv"], p["w_out"]
+    qkv = (torch._int_mm(hq, wq["cm"]).float() * hs * wq["scale"]
+           + p["b_qkv"].float()).to(x.dtype)
+    q, k, v = (t.reshape(b, n, heads, dh).transpose(1, 2) for t in qkv.split(d, -1))
+    attn = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
+        b * n, heads, dh)
+    oq, os = quantize_rows(attn.float())
+    acc = x32 + p["b_out"].float()
+    for h in range(heads):
+        acc = acc + (torch._int_mm(oq[:, h].contiguous(), wo["cm"][h]).float()
+                     * os[:, h] * wo["scale"])
+    return acc.to(x.dtype).view(b, n, d)
+
+
+def _k6_library(p):
+    import torch
+    import torch.nn.functional as F
+
+    from clip_gp_tpu_torch.ops.int8_block import quantize_rows
+
+    x = p["x"]
+    b, n, d = x.shape
+    x32 = x.float().view(b * n, d)
+    hq, hs = quantize_rows(F.layer_norm(x32, (d,), p["ln_scale"], p["ln_bias"]))
+    wf, wp = p["w_fc"], p["w_proj"]
+    hid = torch._int_mm(hq, wf["cm"]).float() * hs * wf["scale"] + p["b_fc"]
+    gq, gs = quantize_rows(hid * torch.sigmoid(1.702 * hid))
+    out = torch._int_mm(gq, wp["cm"]).float() * gs * wp["scale"] + p["b_proj"]
+    return (x32 + out).to(x.dtype).view(b, n, d)
+
+
+def _q8_cost(kernel, b, n, d, itemsize, peaks):
+    """(seconds of operations, bytes) of one K5/K6 call: int8 products at the
+    int8 tensor peak, K5's attention core at the working type's peak; x read
+    and the output written once, the int8 weights, their fp32 scales and
+    the fp32 biases and LN parameters read once."""
+    t = b * n
+    act = 2 * t * d * itemsize
+    if kernel == "q8_ln_attention_block":
+        attn_peak = peaks["bf16" if itemsize == 2 else "fp32"]
+        seconds = 8 * t * d * d / peaks["int8"] + 4 * b * n * n * d / attn_peak
+        return seconds, act + 4 * d * d + (3 * d + 3 * d + d + d + 2 * d) * 4
+    seconds = 16 * t * d * d / peaks["int8"]
+    return seconds, act + 8 * d * d + (4 * d + 4 * d + d + d + 2 * d) * 4
+
+
+def phase_q8_kernels(device, peaks):
+    """K5/K6 cells: kernel vs plain (share of elements within the tolerance
+    and mean error), timed beside the plain version and the yardstick."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    cells = []
+    for shape_name, b, n, d, heads, dtype_name in Q8_SHAPES:
+        p = _q8_block_inputs(b, n, d, dtype_name, device, seed=200 + len(cells))
+        wq, wo, wf, wp = p["w_qkv"], p["w_out"], p["w_fc"], p["w_proj"]
+        k5 = (p["x"], p["ln_scale"], p["ln_bias"], wq["q"], wq["scale"],
+              p["b_qkv"], wo["q"], wo["scale"], p["b_out"], heads)
+        k6 = (p["x"], p["ln_scale"], p["ln_bias"], wf["q"], wf["scale"],
+              p["b_fc"], wp["q"], wp["scale"], p["b_proj"])
+        runs = {
+            "q8_ln_attention_block": (
+                lambda: ib.q8_ln_attention_block(*k5),
+                lambda: ib.q8_ln_attention_block_plain(*k5),
+                lambda: _k5_library(p, heads),
+            ),
+            "q8_ln_mlp": (
+                lambda: ib.q8_ln_mlp(*k6),
+                lambda: ib.q8_ln_mlp_plain(*k6),
+                lambda: _k6_library(p),
+            ),
+        }
+        for kernel, (run_kernel, run_plain, run_library) in runs.items():
+            with torch.no_grad():
+                out = run_kernel()
+                ref = run_plain()
+                lib_out = run_library()
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(out).all()):
+                    raise RuntimeError(f"{kernel} {shape_name} {dtype_name}: "
+                                       "non-finite output")
+                diff = (out.float() - ref.float()).abs()
+                limit = Q8_TOL["atol"] + Q8_TOL["rtol"] * ref.float().abs()
+                outside = (diff > limit).float().mean().item()
+                mean_rel = (diff.mean() / ref.float().abs().mean()).item()
+                lib_rel = ((lib_out.float() - ref.float()).abs().mean()
+                           / ref.float().abs().mean()).item()
+                max_abs = diff.max().item()
+                del out, ref, lib_out, diff, limit
+                ms = time_ms(run_kernel)
+                plain_ms = time_ms(run_plain)
+                library_ms = time_ms(run_library)
+            t_ops, nbytes = _q8_cost(kernel, b, n, d, p["x"].element_size(), peaks)
+            t_ops *= 1e3
+            t_bytes = nbytes / peaks["bytes"] * 1e3
+            cell = {
+                "name": f"{kernel}[{shape_name},B={b},{dtype_name}]",
+                "kernel": kernel,
+                "route": "cuda",
+                "source": KERNELS[kernel][0],
+                "replaces": KERNELS[kernel][1],
+                "shape": [b, n, d, heads],
+                "dtype": dtype_name,
+                "max_abs_err": max_abs,
+                "share_outside_tol": outside,
+                "mean_rel_err": mean_rel,
+                "library_mean_rel_err": lib_rel,
+                "tol": Q8_TOL,
+                "kernel_ms": ms,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            cell["bound_share"] = cell["bound_ms"] / ms
+            log(f"[kernels] {cell['name']}: max_abs_err {max_abs:.3e} share "
+                f"outside tol {outside:.2e} (allowed {1 - Q8_TOL['share']:.0e}) "
+                f"mean_rel_err {mean_rel:.3e} (allowed {Q8_TOL['mean']:.0e}; "
+                f"library {lib_rel:.3e}) kernel_ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
+                f"{cell['bound_ms']:.4f} ({cell['bound_by']}, "
+                f"{100 * cell['bound_share']:.1f}% of the kernel's time)")
+            if outside > 1 - Q8_TOL["share"] or mean_rel > Q8_TOL["mean"]:
+                raise RuntimeError(f"{cell['name']}: kernel disagrees with "
+                                   "its plain version past the tolerance")
+            cells.append(cell)
+        del p, runs
+        torch.cuda.empty_cache()
+    return cells
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -531,8 +736,42 @@ def phase_towers(device, backbone="ViT-B/16", n_images=32, n_prompts=256):
             f"{TOWER_TOL:.1e} x max |feature|)")
         if err > TOWER_TOL * scale:
             raise RuntimeError(f"{what}: kernel tower disagrees with the plain one")
+    _tower_q8(model, arch, images, img_k, backbone)
     _tower_grad(model, device)
     del model
+
+
+def _tower_q8(model, arch, images, fp32_features, backbone):
+    """The int8 ViT tower (every block K5 then K6, bf16) against the same
+    tower on the plain versions; its distance from the fp32 tower is printed
+    (the weights are random, so it is no accuracy figure)."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_gp_tpu_torch.models import quantized
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    qvisual = quantized.quantize_visual(model, arch)
+    ib.reset_launch_counts()
+    got = quantized.encode_image_q8(qvisual, arch, images)
+    launches = dict(ib.LAUNCHES)
+    with mock.patch.object(ib, "q8_ln_attention_block", ib.q8_ln_attention_block_plain), \
+            mock.patch.object(ib, "q8_ln_mlp", ib.q8_ln_mlp_plain):
+        ref = quantized.encode_image_q8(qvisual, arch, images)
+    torch.cuda.synchronize()
+    if tuple(got.shape) != tuple(ref.shape) or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"encode_image_q8: bad output {tuple(got.shape)}")
+    cos = F.cosine_similarity(got, ref, dim=-1).min().item()
+    cos_fp32 = F.cosine_similarity(got, fp32_features, dim=-1).min().item()
+    log(f"[towers] {backbone} encode_image_q8 {tuple(got.shape)} bf16: kernels vs "
+        f"plain min cosine {cos:.7f} (need >= {Q8_TOWER_COS}); vs the fp32 "
+        f"tower min cosine {cos_fp32:.6f} (random weights, not gated); launches "
+        f"{launches}")
+    if cos < Q8_TOWER_COS:
+        raise RuntimeError("encode_image_q8: kernel tower disagrees with the plain one")
+    if min(launches.values()) < arch.vision_layers:
+        raise RuntimeError(f"encode_image_q8: expected each kernel "
+                           f"{arch.vision_layers} times, got {launches}")
 
 
 def _tower_grad(model, device, n_prompts=100, n=24, n_images=32):
@@ -670,6 +909,22 @@ def _config(backbone, trainer_name, shots, epochs):
     return c, arch
 
 
+def _reset_counts():
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    fa.reset_launch_counts()
+    ib.reset_launch_counts()
+
+
+def _counts():
+    """Every kernel's launch count since the last ``_reset_counts``."""
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    return {**fa.LAUNCHES, **ib.LAUNCHES}
+
+
 def _train(c, dm, on_build=None):
     """``build_trainer(c, dm).train()`` with the launch counts set to 0 just
     before and read just after: (launches, metrics, seconds, trainer).
@@ -680,7 +935,6 @@ def _train(c, dm, on_build=None):
     from clip_gp_tpu_torch.core.registry import build_trainer
     from clip_gp_tpu_torch.core.seeding import set_random_seed
     import clip_gp_tpu_torch.methods  # noqa: F401  (registers the trainers)
-    from clip_gp_tpu_torch.ops import flash_attention as fa
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -695,11 +949,11 @@ def _train(c, dm, on_build=None):
                 on_build(trainer)
 
             trainer.build_model = build_model
-        fa.reset_launch_counts()
+        _reset_counts()
         start = time.perf_counter()
         trainer.train()
         seconds = time.perf_counter() - start
-        launches = dict(fa.LAUNCHES)
+        launches = _counts()
         with open(os.path.join(out_dir, "metrics.json")) as f:
             metrics = json.load(f)["metrics"]
     log(f"[{c.trainer_name}] peak device memory "
@@ -825,6 +1079,160 @@ def phase_cocoop(backbone="ViT-B/16", classes=100):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+def _cli_argv(root, out, backbone, extra=()):
+    """``clip_gp_tpu_torch.train`` flags of the serving phase's run: the
+    Adapter (template logits) on the Synthetic dataset at the backbone's
+    resolution, no augmentation, checkpoints on."""
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+
+    res = ARCHITECTURES[backbone].image_resolution
+    return [
+        "--dataset", "Synthetic", "--root", str(root), "--shots", "4",
+        "--backbone", backbone, "--seed", "1", "--output-dir", str(out),
+        "--batch-size", "32", "--num-templates", "16", *extra,
+        "INPUT.SIZE", f"({res}, {res})", "INPUT.TRANSFORMS", "['normalize']",
+        "TRAINER.ADAPTER.CLIP_ADAPTER_EPOCHS", "1", "DATALOADER.NUM_WORKERS", "4",
+        "TRAIN.PRINT_FREQ", "100", "TRAIN.ENABLE_ADAPTER_CHECKPOINTS", "True",
+    ]
+
+
+def _write_pngs(folder, n, size, seed=5):
+    """``n`` synthetic images of ``size``x``size`` as PNG files."""
+    from PIL import Image
+
+    from clip_gp_tpu_torch.data.datasets.synthetic import synthetic_images
+
+    os.makedirs(folder, exist_ok=True)
+    for c, i, img in synthetic_images(4, n // 4, size, seed):
+        Image.fromarray(img).save(os.path.join(folder, f"img_{c}_{i:03d}.png"))
+
+
+def _encode_rates(model, arch, images_u8, preprocess):
+    """(fp32 images/s, int8 images/s, top-1 agreement of the two features
+    under a fixed random head) on one batch, each the median of 5 timed
+    calls after one warm-up."""
+    import torch
+
+    from clip_gp_tpu_torch.models import quantized
+
+    qvisual = quantized.quantize_visual(model, arch)
+    x = preprocess(images_u8)
+    fns = {"fp32": lambda: model.encode_image(x),
+           "int8": lambda: quantized.encode_image_q8(qvisual, arch, x)}
+    rates, feats = {}, {}
+    with torch.no_grad():
+        for name, fn in fns.items():
+            feats[name] = fn()
+            rates[name] = x.shape[0] / (time_ms(fn, iters=5, warmup=1) / 1e3)
+    head = torch.randn(arch.embed_dim, 10, generator=torch.Generator().manual_seed(3))
+    head = head.to(x.device)
+    top = {k: (v / v.norm(dim=-1, keepdim=True) @ head).argmax(-1) for k, v in feats.items()}
+    return rates["fp32"], rates["int8"], (top["fp32"] == top["int8"]).float().mean().item()
+
+
+def phase_serving(device, backbone="ViT-B/16", n_pngs=64):
+    """Train a run with the CLI, then serve it with --eval-only and the
+    predict entry on the int8 tower; returns the launches of each."""
+    import numpy as np
+    import torch
+
+    from clip_gp_tpu_torch import predict
+    from clip_gp_tpu_torch import train as cli
+    from clip_gp_tpu_torch.core.logging import reset_tee
+    from clip_gp_tpu_torch.data.datasets.synthetic import synthetic_images
+    from clip_gp_tpu_torch.data.transforms import device_preprocess
+    from clip_gp_tpu_torch.methods import common
+    from clip_gp_tpu_torch.models.clip_loader import init_clip_params
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+
+    os.environ["CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS"] = "1"
+    arch = ARCHITECTURES[backbone]
+    res = arch.image_resolution
+    # the text side: every class × template prompt through the text tower
+    # once per trainer build, in batches of 256
+    text_launches = arch.transformer_layers * math.ceil(4 * 16 / 256)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        start = time.perf_counter()
+        try:
+            cli.main(_cli_argv(os.path.join(tmp, "data"), run, backbone))
+        finally:
+            reset_tee()
+        train_s = time.perf_counter() - start
+
+        evald = os.path.join(tmp, "eval")
+        _reset_counts()
+        start = time.perf_counter()
+        try:
+            cli.main(_cli_argv(os.path.join(tmp, "data"), evald, backbone, extra=[
+                "--eval-only", "--model-dir", run]) + ["MODEL.INT8_INFERENCE", "True"])
+        finally:
+            reset_tee()
+        by_path["eval_only_int8"] = _counts()
+        eval_s = time.perf_counter() - start
+        with open(os.path.join(evald, "metrics.json")) as f:
+            payload = json.load(f)
+        metrics = payload["metrics"]
+        for key in ("top1_acc", "macro_f1", "ece", "aece"):
+            if not np.isfinite(metrics[key]):
+                raise RuntimeError(f"--eval-only metrics.json: {key} = {metrics[key]}")
+        log(f"[serving] trained {backbone} Adapter (1 epoch) in {train_s:.2f} s; "
+            f"--eval-only int8 in {eval_s:.2f} s: {_metrics_line(metrics)}")
+
+        pngs = os.path.join(tmp, "pngs")
+        _write_pngs(pngs, n_pngs, res)
+        preds = {}
+        for name, flags in (("int8", ["--int8"]), ("fp32", [])):
+            _reset_counts()
+            start = time.perf_counter()
+            preds[name] = predict.main([
+                "--model-dir", run, "--images", pngs, "--topk", "3",
+                "--output", os.path.join(tmp, f"pred-{name}.json"), *flags])
+            seconds = time.perf_counter() - start
+            by_path[f"predict_{name}"] = _counts()
+            log(f"[serving] predict {name}: {preds[name]['num_images']} PNGs in "
+                f"{seconds:.2f} s; launches {by_path[f'predict_{name}']}")
+        if preds["int8"]["num_images"] != n_pngs or len(preds["int8"]["predictions"]) != n_pngs:
+            raise RuntimeError(f"predictions.json: {preds['int8']['num_images']} of "
+                               f"{n_pngs} images")
+        agree = np.mean([a["topk"][0]["label"] == b["topk"][0]["label"] for a, b in
+                         zip(preds["int8"]["predictions"], preds["fp32"]["predictions"])])
+
+        # every ViT block of every int8 image encode: K5 and K6; the image
+        # encodes launch no K1/K2 (those come from the text side only). The
+        # Synthetic test split (24 of 80 images) is one extraction batch.
+        batch = common.EXTRACT_DEVICE_BATCH
+        encodes = {"eval_only_int8": math.ceil(24 / batch),
+                   "predict_int8": math.ceil(n_pngs / batch)}
+        for path, n_encodes in encodes.items():
+            launches = by_path[path]
+            need = arch.vision_layers * n_encodes
+            _check_launches(f"serving {path}", launches,
+                            {"q8_ln_attention_block": need, "q8_ln_mlp": need})
+            for kernel in ("fused_ln_attention_block", "fused_ln_mlp"):
+                if launches[kernel] != text_launches:
+                    raise RuntimeError(
+                        f"serving {path}: {kernel} launched {launches[kernel]} "
+                        f"times, the text side alone launches {text_launches}: "
+                        "an int8 image encode went through K1/K2")
+
+    # the run's random weights (seed 1) and the PNGs' pixels, on the card
+    model = init_clip_params(arch, seed=1, device=device)
+    images = torch.from_numpy(np.stack(
+        [img for _, _, img in synthetic_images(4, n_pngs // 4, res, 5)])).to(device)
+    fp32_rate, int8_rate, top1 = _encode_rates(model, arch, images, device_preprocess)
+    log(f"[serving] {backbone} encode of {n_pngs} images: fp32 {fp32_rate:.1f} "
+        f"images/s, int8 {int8_rate:.1f} images/s; top-1 agreement of the "
+        f"predict entry's int8 and fp32 runs {100 * agree:.1f}%, of the two "
+        f"encodes under a random head {100 * top1:.1f}%")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -839,10 +1247,11 @@ def main() -> int:
         return 2
     device, smi = phase_build()
     peaks = card_peaks(torch.cuda.get_device_name(0))
-    cells = phase_kernels(device, peaks) + phase_bwd_kernels(device, peaks)
+    cells = (phase_kernels(device, peaks) + phase_bwd_kernels(device, peaks)
+             + phase_q8_kernels(device, peaks))
     phase_towers(device)
     by_path = {"adapter_gp": phase_trainer(), "coop": phase_coop(),
-               "cocoop": phase_cocoop()}
+               "cocoop": phase_cocoop(), **phase_serving(device)}
     for cell in cells:
         counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())

@@ -11,6 +11,14 @@
 // (max-subtracted exp, divided by the row sum), the probabilities round to T,
 // p.v accumulates in fp32 and rounds to T.
 //
+// The same kernel with QUANT is the attention core of K5
+// (_q8_ln_block_kernel, clip_gp_tpu/ops/int8_block.py): there each head's
+// fp32 output is not rounded to T but quantized per (row, head), as that
+// kernel's quantize_rows(out_h) does: the warp that holds a query row's 64
+// outputs takes their absmax, scale = max(absmax / 127, 1e-12), and writes
+// int8 codes clip(rint(o / scale), ±127) at [B, N, D] plus the scale at
+// [B, N, H], for the int8 out-projection of int8_block.cu.
+//
 // One block per (query tile of 64 rows, head, batch element): the head's K
 // and V for the whole sequence sit in shared memory as fp32 (about 100 KB at
 // N = 197), each warp walks 8 query rows, each lane scores up to 8 keys, and
@@ -39,10 +47,11 @@ size_t smem_bytes(int n) {
          ((size_t)n * KS_LD + (size_t)n * DH + QT * DH + WARPS * MAX_N);
 }
 
-template <typename T>
+template <typename T, bool QUANT>
 __global__ void __launch_bounds__(WARPS * 32)
     attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                     T* __restrict__ out, int N, int D) {
+                     T* __restrict__ out, int8_t* __restrict__ q_out,
+                     float* __restrict__ q_scale, int N, int D) {
   extern __shared__ float smem[];
   float* Ks = smem;                  // [N][KS_LD]
   float* Vs = Ks + (size_t)N * KS_LD;  // [N][DH]
@@ -117,16 +126,26 @@ __global__ void __launch_bounds__(WARPS * 32)
       o0 = fmaf(p, Vs[j * DH + lane], o0);
       o1 = fmaf(p, Vs[j * DH + lane + 32], o1);
     }
-    T* orow = out + ((size_t)b * N + qi) * D + h * DH;
-    orow[lane] = from_f32<T>(o0);
-    orow[lane + 32] = from_f32<T>(o1);
+    const size_t row = (size_t)b * N + qi;
+    if constexpr (QUANT) {
+      const float amax = warp_max(fmaxf(fabsf(o0), fabsf(o1)));
+      const float sc = fmaxf(__fdiv_rn(amax, 127.f), kQuantEps);
+      int8_t* qrow = q_out + row * D + h * DH;
+      qrow[lane] = quantize_code(o0, sc);
+      qrow[lane + 32] = quantize_code(o1, sc);
+      if (lane == 0) q_scale[row * gridDim.y + h] = sc;
+    } else {
+      T* orow = out + row * D + h * DH;
+      orow[lane] = from_f32<T>(o0);
+      orow[lane + 32] = from_f32<T>(o1);
+    }
     __syncwarp();  // P is rewritten by the warp's next query
   }
 }
 
-template <typename T>
-int launch(const void* qkv, const void* mask, void* out, int B, int N, int H,
-           int D, cudaStream_t s) {
+template <typename T, bool QUANT>
+int launch(const void* qkv, const void* mask, void* out, void* q_scale, int B,
+           int N, int H, int D, cudaStream_t s) {
   const size_t bytes = smem_bytes(N);
   // the shared-memory opt-in is a property of the function on a device: set
   // it once per working type and device, not on every launch
@@ -135,15 +154,16 @@ int launch(const void* qkv, const void* mask, void* out, int B, int N, int H,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !((opted_in >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(attention_kernel<T>,
+    err = cudaFuncSetAttribute(attention_kernel<T, QUANT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_bytes(MAX_N));
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) opted_in |= 1ull << dev;
   }
   const dim3 grid((N + QT - 1) / QT, H, B), block(WARPS * 32);
-  attention_kernel<T><<<grid, block, bytes, s>>>(
-      (const T*)qkv, (const float*)mask, (T*)out, N, D);
+  attention_kernel<T, QUANT><<<grid, block, bytes, s>>>(
+      (const T*)qkv, (const float*)mask, QUANT ? nullptr : (T*)out,
+      QUANT ? (int8_t*)out : nullptr, (float*)q_scale, N, D);
   return (int)cudaGetLastError();
 }
 
@@ -156,8 +176,24 @@ extern "C" int cgt_attention(const void* qkv, const void* mask, void* out,
                              void* stream) {
   if (N < 1 || N > MAX_N || D != H * DH) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) return launch<float>(qkv, mask, out, B, N, H, D, s);
+  if (dtype == kF32)
+    return launch<float, false>(qkv, mask, out, nullptr, B, N, H, D, s);
   if (dtype == kBF16)
-    return launch<__nv_bfloat16>(qkv, mask, out, B, N, H, D, s);
+    return launch<__nv_bfloat16, false>(qkv, mask, out, nullptr, B, N, H, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5's attention core: int8 codes q_out [B, N, D] and fp32 scales
+// q_scale [B, N, H] in place of attn
+extern "C" int cgt_attention_q8(const void* qkv, const void* mask, void* q_out,
+                                void* q_scale, int B, int N, int H, int D,
+                                int dtype, void* stream) {
+  if (N < 1 || N > MAX_N || D != H * DH) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return launch<float, true>(qkv, mask, q_out, q_scale, B, N, H, D, s);
+  if (dtype == kBF16)
+    return launch<__nv_bfloat16, true>(qkv, mask, q_out, q_scale, B, N, H, D,
+                                       s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cgt {
 
@@ -33,6 +34,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
+}
+
+// int8 quantization of the int8 kernels (K5/K6), as the JAX package's
+// quantize_rows: scale = max(absmax / 127, kQuantEps) per row, code =
+// clip(rint(v / scale), ±127). IEEE division, and rintf (round half to even,
+// as jnp.round); roundf would round half away from zero.
+constexpr float kQuantEps = 1e-12f;
+
+__device__ __forceinline__ int8_t quantize_code(float v, float scale) {
+  const float q = rintf(__fdiv_rn(v, scale));
+  return (int8_t)(int)fminf(fmaxf(q, -127.f), 127.f);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -16,8 +16,12 @@ Eval MC-averages logits over ``gp_num_mc_samples_eval`` samples. Each step is
 eager PyTorch with autograd; GP noise comes from per-batch generators of the
 run's ``KeySequence``.
 
+Checkpoints reload (``load_trainable_state``) in every mode; a reload on a
+subset of the trained classes selects their rows of the per-class state and
+of the GP buffers saved beside the checkpoints (``remap_trainable_state``).
+
 Not ported yet: the finetune-on-test sanity loop, the prefit-on-full-set
-template scoring, reference-checkpoint adoption and checkpoint reload.
+template scoring and reference-checkpoint adoption.
 """
 
 from __future__ import annotations
@@ -203,12 +207,60 @@ class Trainer(BaseTrainer):
     def trainable_state(self):
         return self.params
 
+    def load_trainable_state(self, state):
+        """Adopt a checkpoint's state (it may change K) and start a fresh
+        optimizer over it, as the JAX package keeps its initial optimizer
+        state when it swaps the params in."""
+        self.params = self._adopt_state(state)
+        self._build_optimizer()
+
     def extra_checkpoint_state(self):
         # GP buffers (PCA basis + reduced templates) derive from the TRAINING
         # dataset's text; a class-subset reload must reuse them
         if self.mode == "gp":
             return {"gp_buffers": self.gp_buffers}
         return {}
+
+    # per-class GP param leaves (leading dim K); tmp_bias [1,M] and A [d,d]
+    # are class-agnostic
+    _GP_PER_CLASS = (
+        "inducing_token", "variational_mean", "chol_variational_covar",
+        "cls_bias", "raw_lengthscale", "raw_outputscale", "raw_variance",
+    )
+    # "inducing_frozen" is read from JAX checkpoints written before that
+    # buffer was folded into templates_red
+    _GP_BUF_PER_CLASS = ("templates", "templates_red", "inducing_frozen", "f0")
+
+    def remap_trainable_state(self, state, extra, idx):
+        def take(a):
+            return np.asarray(a)[idx]
+
+        out = dict(state)
+        if "template_logits" in out and np.asarray(out["template_logits"]).shape[0] > 1:
+            out["template_logits"] = take(out["template_logits"])
+        if "gp" in out:
+            gp = dict(out["gp"])
+            for name in self._GP_PER_CLASS:
+                if name in gp:
+                    gp[name] = take(gp[name])
+            out["gp"] = gp
+            bufs = extra.get("gp_buffers")
+            if bufs is None:
+                raise ValueError(
+                    "GP checkpoint predates gp_buffers saving; cannot remap "
+                    "across datasets — re-train or evaluate on the full "
+                    "class set"
+                )
+            newb = {k: take(v) if k in self._GP_BUF_PER_CLASS else np.asarray(v)
+                    for k, v in bufs.items()}
+            if int(newb["f0"].shape[1]) != self.gp_static.num_templates:
+                raise ValueError(
+                    f"checkpoint template count {int(newb['f0'].shape[1])} != "
+                    f"configured {self.gp_static.num_templates}"
+                )
+            self.gp_buffers = self._adopt_state(newb)
+            self.gp_static = self.gp_static._replace(num_classes=len(idx))
+        return out
 
     # ------------------------------------------------------------------
     def train(self):

@@ -136,14 +136,7 @@ class PromptTrainer(BaseTrainer):
         self.opt = EpochOptimizer(self.config.optim, leaves)
 
     def load_trainable_state(self, state: Dict) -> None:
-        def adopt(v):
-            if isinstance(v, dict):
-                return {k: adopt(x) for k, x in v.items()}
-            if not isinstance(v, torch.Tensor):
-                v = torch.tensor(np.asarray(v))
-            return v.detach().to(self.device, torch.float32).clone()
-
-        self._set_params(adopt(state))
+        self._set_params(self._adopt_state(state))
 
     def trainable_state(self):
         return self.params

@@ -10,6 +10,10 @@ PyTorch versions on the CPU. The text tower is differentiable: the prompt
 learners (CoOp, CoCoOp) backpropagate through it to their context vectors,
 and each block's backward runs K4 then K3.
 
+The ViT tower's block body can be swapped while its stem and epilogue stay
+shared: the int8 serving tower (``models/quantized.py``) runs K5 then K6 in
+every block through that hook.
+
 Not ported yet: the ModifiedResNet tower (RN50…RN50x16) and
 ``encode_image_all_layers``.
 """
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -236,8 +240,15 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(w)
         self.proj = _param(w, arch.embed_dim)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: NHWC [B,R,R,3] in the compute dtype → [B, embed_dim]."""
+    def forward(self, images: torch.Tensor, block_fn: Optional[Callable] = None,
+                block_params: Optional[Sequence] = None) -> torch.Tensor:
+        """images: NHWC [B,R,R,3] in the compute dtype → [B, embed_dim].
+
+        ``block_fn(block_params[i], x, num_heads)`` overrides the residual
+        block body, layer by layer, while the stem and epilogue (patch conv,
+        class/pos embeds, ln_pre, ln_post, proj) stay shared: the int8 tower
+        (``models/quantized.py``) plugs in here, as it does through the JAX
+        ``vision_transformer(..., block_fn=...)``."""
         dt = images.dtype
         x = F.conv2d(images.permute(0, 3, 1, 2), self.conv1.w.to(dt),
                      stride=self.patch_size)  # [B, W, grid, grid]
@@ -246,7 +257,11 @@ class VisionTransformer(nn.Module):
         cls = self.class_embed.to(dt).expand(b, 1, w)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         x = layer_norm(self.ln_pre, x)
-        x = self.transformer(x)
+        if block_fn is None:
+            x = self.transformer(x)
+        else:
+            for p in block_params:
+                x = block_fn(p, x, self.heads)
         x = layer_norm(self.ln_post, x[:, 0])
         return x @ self.proj.to(dt)
 

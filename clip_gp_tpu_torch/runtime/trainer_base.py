@@ -9,10 +9,18 @@ and ``max_epoch`` taken from ``adapter.clip_adapter_epochs`` for every
 trainer (ref quirk SURVEY §2.3.3). The frozen CLIP runs on ``self.device``
 (the GPU unless the caller asks for the CPU, see ``core/device.py``).
 
-Not ported yet: loading checkpoints (``--resume``, ``--eval-only``,
-``FINAL_MODEL best_val``) with the class-name remap and reference-checkpoint
-adoption, the disk feature cache, int8 and sharded extraction, and
-TensorBoard. Asking for one raises ``NotImplementedError``.
+Checkpoints reload as the JAX package's do: ``load_model`` finds the npz
+(an explicit epoch, else ``model-best``, else the highest epoch), remaps
+per-class state to the evaluated classes (by class key, else by unique class
+name), and serves ``--resume``, ``--eval-only``, ``FINAL_MODEL best_val`` and
+the predict entry. With ``MODEL.INT8_INFERENCE`` the image encodes run the
+int8 ViT tower (``models/quantized.py``, K5/K6), its weights quantized once
+per loaded tower.
+
+Not ported yet: reference-format checkpoints (``model.pth.tar-*``, whose
+adoption needs ``runtime/ref_checkpoint.py``; ``load_model`` raises on one),
+the disk feature cache, sharded extraction, and TensorBoard
+(``TRAIN.ENABLE_TENSORBOARD`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import re
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -31,6 +40,7 @@ from clip_gp_tpu_torch.core.device import resolve_device
 from clip_gp_tpu_torch.core.seeding import KeySequence
 from clip_gp_tpu_torch.data.transforms import preprocess_fn
 from clip_gp_tpu_torch.methods.common import extract_with
+from clip_gp_tpu_torch.models import quantized
 from clip_gp_tpu_torch.models.clip_loader import load_clip_resolved
 from clip_gp_tpu_torch.ops.metrics import (
     compute_accuracy,
@@ -40,9 +50,40 @@ from clip_gp_tpu_torch.ops.metrics import (
     compute_ece_with_bins,
     compute_macro_f1,
 )
-from clip_gp_tpu_torch.runtime.checkpoint import _flatten
+from clip_gp_tpu_torch.runtime.checkpoint import _flatten, _unflatten
 
 CKPT_PREFIX = "model.ckpt-"
+# the reference's own checkpoint names (ref: utils/trainer.py:376-399)
+REF_CKPT_PREFIX = "model.pth.tar-"
+
+
+def _find_checkpoint(model_dir: str, epoch: Optional[int], prefix: str,
+                     suffix: str, best: str) -> Optional[Path]:
+    adapter_dir = Path(model_dir) / "adapter"
+    if epoch is not None:
+        path = adapter_dir / f"{prefix}{epoch}{suffix}"
+        return path if path.exists() else None
+    if (adapter_dir / best).exists():
+        return adapter_dir / best
+    cands = sorted(
+        adapter_dir.glob(f"{prefix}*{suffix}"),
+        key=lambda p: int(re.search(r"(\d+)", p.name[len(prefix):]).group(1)),
+    )
+    return cands[-1] if cands else None
+
+
+def resolve_checkpoint_path(model_dir: str, epoch: Optional[int] = None):
+    """<out>/adapter checkpoint discovery: explicit epoch, else model-best,
+    else highest-numbered (ref: utils/trainer.py:376-399). None if absent."""
+    return _find_checkpoint(model_dir, epoch, CKPT_PREFIX, ".npz", "model-best.npz")
+
+
+def read_checkpoint_classnames(path) -> Optional[list]:
+    """Label-ordered classnames stored in a checkpoint, if present."""
+    with np.load(path, allow_pickle=False) as data:
+        if "__classnames__" in data.files:
+            return [str(c) for c in data["__classnames__"]]
+    return None
 
 
 def infer_method_name(config) -> str:
@@ -65,23 +106,10 @@ def infer_method_name(config) -> str:
     return "gp" if bool(getattr(config.adapter, "use_gp", False)) else "baseline"
 
 
-def _not_ported(config) -> Optional[str]:
-    if config.resume:
-        return "resuming from a checkpoint (--resume)"
-    if getattr(config, "final_model", "last") == "best_val":
-        return "FINAL_MODEL best_val (checkpoint reload)"
-    if getattr(config.train, "enable_tensorboard", False):
-        return "TRAIN.ENABLE_TENSORBOARD"
-    if getattr(config.model, "int8_inference", False):
-        return "MODEL.INT8_INFERENCE"
-    return None
-
-
 class BaseTrainer:
     def __init__(self, config, dataset_manager, device=None):
-        missing = _not_ported(config)
-        if missing:
-            raise NotImplementedError(f"{missing} is not ported yet")
+        if getattr(config.train, "enable_tensorboard", False):
+            raise NotImplementedError("TRAIN.ENABLE_TENSORBOARD is not ported yet")
         self.config = config
         self.dm = dataset_manager
         self.device = resolve_device(device)
@@ -99,9 +127,12 @@ class BaseTrainer:
         self.keys = KeySequence(int(config.seed), self.device)
         self.preprocess = preprocess_fn(config)
         self.zero_shot_metrics: Optional[Dict] = None
+        self._best_val_acc = float("-inf")
+        self._val_feature_memo: Optional[Tuple] = None
         # set by build_model
         self.clip_arch = None
         self.clip_model = None
+        self._encode_plan_cached: Optional[Dict] = None
 
     # ------------------------------------------------------------------
     # model plumbing provided by subclasses
@@ -117,6 +148,19 @@ class BaseTrainer:
         """Small trainable state (nested dict of tensors) for checkpoints."""
         return {}
 
+    def load_trainable_state(self, state: Dict) -> None:
+        pass
+
+    def _adopt_state(self, state):
+        """A checkpoint state (nested dicts of numpy arrays or tensors) as
+        fresh fp32 tensors on ``self.device``."""
+        if isinstance(state, dict):
+            return {k: self._adopt_state(v) for k, v in state.items()}
+        if isinstance(state, torch.Tensor):
+            state = state.detach().cpu().numpy()
+        return torch.tensor(np.asarray(state), dtype=torch.float32,
+                            device=self.device)
+
     # ------------------------------------------------------------------
     # CLIP + feature extraction
     # ------------------------------------------------------------------
@@ -126,16 +170,47 @@ class BaseTrainer:
             self.config, allow_random=allow_random, seed=int(self.config.seed),
             device=self.device,
         )
+        # the encode plan (and its quantized tower) belongs to the weights
+        # just replaced
+        self._encode_plan_cached = None
         return self.clip_arch, self.clip_model
 
+    def _int8_effective(self) -> bool:
+        """Whether extraction runs the int8 tower: the config flag and a
+        tower the int8 path covers (ViT only)."""
+        return bool(
+            getattr(self.config.model, "int8_inference", False)
+            and self.clip_arch is not None
+            and self.clip_arch.is_vit
+        )
+
+    def _encode_plan(self) -> Dict:
+        """Extraction decisions, frozen once per loaded tower: int8 or not,
+        and the int8 tower's weights, quantized once."""
+        if self._encode_plan_cached is None:
+            int8 = self._int8_effective()
+            self._encode_plan_cached = {
+                "int8": int8,
+                "qvisual": (quantized.quantize_visual(self.clip_model, self.clip_arch)
+                            if int8 else None),
+            }
+        return self._encode_plan_cached
+
     def encode_images_batched(self, loader) -> Tuple[np.ndarray, np.ndarray]:
-        """One pass of the frozen image tower (fp32) over a loader → (labels
-        [N], features [N,D])."""
+        """One pass of the frozen image tower over a loader → (labels [N],
+        features [N,D]): the fp32 tower, or with ``MODEL.INT8_INFERENCE`` the
+        int8 tower in bf16 (every block K5 then K6). The training math is the
+        same either way: every method trains on the extracted features."""
+        plan = self._encode_plan()
 
         def encode(images_u8: np.ndarray) -> torch.Tensor:
             images = torch.from_numpy(images_u8).to(self.device)
             with torch.no_grad():
-                return self.clip_model.encode_image(self.preprocess(images))
+                x = self.preprocess(images)
+                if plan["int8"]:
+                    return quantized.encode_image_q8(plan["qvisual"],
+                                                     self.clip_arch, x)
+                return self.clip_model.encode_image(x)
 
         feats, labels = extract_with(encode, loader)
         return labels, feats
@@ -162,12 +237,18 @@ class BaseTrainer:
     # lifecycle
     # ------------------------------------------------------------------
     def before_train(self):
+        if self.config.resume:
+            self.start_epoch = self.load_model(self.config.resume)
         self.time_start = time.time()
 
     def after_train(self):
         print("Finish training")
         if not getattr(self.config, "no_test", False):
-            print("Deploy the last-epoch model")
+            if getattr(self.config, "final_model", "last") == "best_val":
+                print("Deploy the model with the best val performance")
+                self.load_model(self.output_dir)
+            else:
+                print("Deploy the last-epoch model")
             self.test()
         if self.time_start is not None:
             elapsed = str(datetime.timedelta(seconds=round(time.time() - self.time_start)))
@@ -184,6 +265,25 @@ class BaseTrainer:
             self.config.train, "enable_adapter_checkpoints", False
         ):
             self.save_model(self.epoch, self.output_dir)
+        # best-val tracking: the reference defines the best_val deploy but
+        # never writes model-best (ref quirk, utils/trainer.py); as in the JAX
+        # package, val is evaluated each epoch and the best state kept
+        if (
+            getattr(self.config, "final_model", "last") == "best_val"
+            and self.val_loader is not None
+            and len(self.dm.dataset.val or []) > 0
+        ):
+            if self._val_feature_memo is None:
+                labels, feats = self.encode_images_batched(self.val_loader)
+                self._val_feature_memo = (labels, torch.from_numpy(feats).to(self.device))
+            labels, feats = self._val_feature_memo
+            with torch.no_grad():
+                logits = self.predict_logits(feats).cpu().numpy()
+            acc = compute_accuracy(logits, labels)[0]
+            if acc > self._best_val_acc:
+                self._best_val_acc = acc
+                self.save_model(self.epoch, self.output_dir, model_name="model-best")
+                print(f"New best val accuracy: {acc:.2f} (epoch {self.epoch + 1})")
 
     def train(self):
         self.build_model()
@@ -318,3 +418,101 @@ class BaseTrainer:
             save_dir / f"{name}.npz", __epoch__=np.asarray(epoch + 1), **flat
         )
         print(f"Checkpoint saved to {save_dir / name}.npz")
+
+    def remap_trainable_state(self, state: Dict, extra: Dict, idx) -> Dict:
+        """Select the per-class rows ``idx`` (eval-label order → trained-label
+        index) out of a checkpoint trained on a superset of classes (OOD
+        evaluation on class subsets, BASELINE config #5). Heads with
+        per-class state override this."""
+        raise ValueError(
+            f"{type(self).__name__}: checkpoint was trained on different "
+            "classes and this trainer has no cross-dataset remap"
+        )
+
+    def load_model(self, model_dir: str, epoch: Optional[int] = None) -> int:
+        """Load the run's npz checkpoint into the trainer; returns its epoch,
+        or 0 when ``<model_dir>/adapter`` holds none."""
+        path = resolve_checkpoint_path(model_dir, epoch)
+        if path is None:
+            ref_path = _find_checkpoint(model_dir, epoch, REF_CKPT_PREFIX, "",
+                                        "model-best.pth.tar")
+            if ref_path is not None:
+                raise NotImplementedError(
+                    f"{ref_path}: adopting a reference-format checkpoint "
+                    "(runtime/ref_checkpoint.py) is not ported yet"
+                )
+            print(f"No checkpoint found under {Path(model_dir) / 'adapter'}")
+            return 0
+        print(f"Loading checkpoint from {path}")
+
+        def _str_list(data, name):
+            return [str(c) for c in data[name]] if name in data.files else None
+
+        with np.load(path, allow_pickle=False) as data:
+            epoch_loaded = int(data["__epoch__"])
+            saved_classnames = _str_list(data, "__classnames__")
+            saved_keys = _str_list(data, "__class_keys__")
+            flat = {
+                k: data[k]
+                for k in data.files
+                if k not in ("__epoch__", "__classnames__", "__class_keys__")
+            }
+        tree = _unflatten(flat)
+        state = tree["state"]
+        dataset = getattr(self.dm, "dataset", None)
+        cur = getattr(dataset, "classnames", None)
+        cur_keys = getattr(dataset, "class_keys", None)
+        idx = None
+        if saved_keys is not None and cur_keys is not None:
+            # unique per-class keys (ImageNet wnids): exact even where
+            # classnames repeat ('crane' twice in the 1000-class vocabulary)
+            if list(cur_keys) != saved_keys:
+                idx = self._remap_index(saved_keys, list(cur_keys), kind="class keys")
+        elif (
+            saved_classnames is not None
+            and cur is not None
+            and list(cur) != saved_classnames
+        ):
+            idx = self._remap_index(saved_classnames, list(cur), kind="classnames",
+                                    forbid_duplicates=True)
+        if idx is not None:
+            print(
+                f"Remapping per-class state: {len(saved_classnames or saved_keys)}"
+                f" trained -> {len(idx)} eval classes"
+            )
+            extra = tree.get("extra", {})
+            if not extra:
+                extra_path = path.parent / "extra_state.npz"
+                if extra_path.exists():
+                    with np.load(extra_path, allow_pickle=False) as d:
+                        extra = _unflatten({k: d[k] for k in d.files}).get("extra", {})
+            state = self.remap_trainable_state(state, extra, idx)
+        self.load_trainable_state(state)
+        return epoch_loaded
+
+    @staticmethod
+    def _remap_index(saved, cur, kind, forbid_duplicates=False):
+        """Eval-label-ordered indices into the trained class axis."""
+        pos = {}
+        dups = set()
+        for i, c in enumerate(saved):
+            if c in pos:
+                dups.add(c)
+            pos[c] = i
+        missing = [c for c in cur if c not in pos]
+        if missing:
+            raise ValueError(
+                f"checkpoint was trained on {kind} that do not cover this "
+                f"dataset; missing {len(missing)}, e.g. {missing[:3]}"
+            )
+        if forbid_duplicates:
+            # a name-keyed remap is ambiguous when a needed name repeats in
+            # the trained vocabulary: either row would silently degrade it
+            ambiguous = sorted(dups & set(cur))
+            if ambiguous:
+                raise ValueError(
+                    f"cannot remap per-class state: {kind} {ambiguous[:3]} "
+                    "appear more than once in the trained vocabulary; "
+                    "evaluate on the full class set instead"
+                )
+        return np.asarray([pos[c] for c in cur], dtype=np.int64)

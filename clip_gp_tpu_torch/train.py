@@ -1,14 +1,19 @@
 """CLI entry point — flag- and flow-compatible with the JAX package's
 ``train.py`` (and the reference's, ref: train.py:57-107): parse config →
-logger (log.txt tee) → seed → data manager → trainer → train / no-train.
+logger (log.txt tee) → seed → data manager → trainer → train / eval-only /
+no-train.
 
 Run as ``python -m clip_gp_tpu_torch.train [flags] [OPTS...]``. It runs on
-the GPU; ``CLIP_GP_TPU_TORCH_FORCE_CPU=1`` runs it on the CPU. ``--eval-only``
-(checkpoint reload) is not ported yet.
+the GPU; ``CLIP_GP_TPU_TORCH_FORCE_CPU=1`` runs it on the CPU.
+``--eval-only --model-dir <run>`` rebuilds the trainer, reloads the run's
+checkpoint (``--load-epoch``, else model-best, else the last) and writes
+metrics.json for the test split; with ``MODEL.INT8_INFERENCE True`` its image
+encodes run the int8 tower.
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 
 
@@ -29,8 +34,6 @@ def main(argv=None):
     import clip_gp_tpu_torch.methods  # noqa: F401
 
     config = parse_args_to_config(argv)
-    if config.eval_only:
-        raise NotImplementedError("--eval-only (checkpoint reload) is not ported yet")
     setup_logger(config.output_dir)
     print_config(config)
 
@@ -48,6 +51,12 @@ def main(argv=None):
 
     dm = build_data_manager(config)
     trainer = build_trainer(config, dm)
+    if config.eval_only:
+        trainer.build_model()
+        trainer.load_model(config.model_dir, epoch=config.load_epoch)
+        trainer.time_start = time.time()
+        trainer.test()
+        return
     if not config.no_train:
         trainer.train()
 

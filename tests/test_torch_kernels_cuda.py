@@ -247,3 +247,165 @@ def test_tower_through_the_kernels_matches_the_plain_tower(device):
             ref = model.encode_image(images), model.encode_text(tokens)
     for out, expected in zip(got, ref):
         _assert_close(out, expected, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# K5/K6: the int8 blocks of the serving tower (ops/int8_block.py). Their
+# products are exact in int32 on both sides, so the kernels and the plain
+# versions differ only where an fp32 sum taken in another order (LayerNorm
+# statistics, softmax, p·v) moves one activation across a quantization
+# boundary. Such a flip moves the outputs it feeds by one quantization step
+# times the weights, up to about 1e-2 at ViT-B/16 width, and in an fp32 block
+# it spreads to every query of the image (a flipped LN code changes a key
+# and a value): measured on the H100, 96.7% of an fp32 K5's elements at B=32
+# lie within the fp32 tolerance and all of them within one bf16 ulp. So
+# both working types are held to the bf16 tolerance (2^-6 + 2^-7·|plain|):
+# at least 99.9% of the elements within it, and a mean |Δ| of at most 1e-3
+# of the mean |plain|.
+# ---------------------------------------------------------------------------
+
+def _q8_inputs(b, n, d, dtype, device, causal=False, hidden=None, seed=0):
+    from clip_gp_tpu_torch.models.quantized import quantize_weight
+
+    p = _inputs(b, n, d, torch.float32, device, causal=causal, hidden=hidden,
+                seed=seed)
+    p["x"] = p["x"].to(dtype)
+    for key in ("w_qkv", "w_out", "w_fc", "w_proj"):
+        p[key] = quantize_weight(p[key])
+    return p
+
+
+def _k5(p, heads, fn=None):
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    fn = fn or ib.q8_ln_attention_block
+    return fn(p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"]["q"],
+              p["w_qkv"]["scale"], p["b_qkv"], p["w_out"]["q"],
+              p["w_out"]["scale"], p["b_out"], heads, p["mask"])
+
+
+def _k6(p, fn=None):
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    fn = fn or ib.q8_ln_mlp
+    return fn(p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"]["q"],
+              p["w_fc"]["scale"], p["b_fc"], p["w_proj"]["q"],
+              p["w_proj"]["scale"], p["b_proj"])
+
+
+def _assert_mostly_close(out, ref, dtype):
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    diff = (out.float() - ref.float()).abs()
+    tol = TOL[torch.bfloat16]
+    inside = (diff <= tol["atol"] + tol["rtol"] * ref.float().abs()).float().mean()
+    assert inside.item() >= 0.999, (inside.item(), diff.max().item())
+    assert diff.mean().item() <= 1e-3 * ref.float().abs().mean().item()
+
+
+K5_SHAPES = [  # (batch, tokens, width, heads, causal)
+    (2, 9, 128, 2, False),
+    (2, 17, 128, 2, True),
+    (3, 1, 128, 2, False),
+    (3, 197, 768, 12, False),
+    (2, 77, 512, 8, True),
+    (1, 256, 256, 4, False),
+]
+K6_SHAPES = [  # (batch, tokens, width, hidden)
+    (2, 9, 128, 512),
+    (3, 1, 128, 512),
+    (3, 197, 768, 3072),
+    (2, 33, 256, 800),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=str)
+def test_k5_kernel_matches_plain(device, shape, dtype):
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    b, n, d, heads, causal = shape
+    p = _q8_inputs(b, n, d, dtype, device, causal=causal)
+    with torch.no_grad():
+        _assert_mostly_close(_k5(p, heads),
+                             _k5(p, heads, ib.q8_ln_attention_block_plain), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", K6_SHAPES, ids=str)
+def test_k6_kernel_matches_plain(device, shape, dtype):
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    b, n, d, hidden = shape
+    p = _q8_inputs(b, n, d, dtype, device, hidden=hidden)
+    with torch.no_grad():
+        _assert_mostly_close(_k6(p), _k6(p, ib.q8_ln_mlp_plain), dtype)
+
+
+def test_quantize_kernel_matches_quantize_rows_bit_for_bit(device):
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    g = torch.Generator().manual_seed(3)
+    rows = torch.randn(1000, 3072, generator=g) * torch.rand(1000, 1, generator=g) * 8
+    rows[1] = 0.0
+    rows[2] = 0.0
+    rows[2, :5] = torch.tensor([127.0, 2.5, -2.5, 3.5, -3.5])  # scale 1: ties
+    rows = rows.to(device)
+    q, scale = ib.quantize_rows_kernel(rows)
+    ref_q, ref_scale = ib.quantize_rows(rows)
+    torch.cuda.synchronize()
+    assert torch.equal(q, ref_q) and torch.equal(scale, ref_scale)
+    assert q[2, :5].tolist() == [127, 2, -2, 4, -4]
+
+
+def test_int8_kernels_repeat_bit_for_bit(device):
+    p = _q8_inputs(4, 197, 768, torch.bfloat16, device)
+    with torch.no_grad():
+        assert torch.equal(_k5(p, 12), _k5(p, 12))
+        assert torch.equal(_k6(p), _k6(p))
+
+
+def test_int8_wrappers_never_reach_the_plain_versions_on_the_card(device):
+    from unittest import mock
+
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    p = _q8_inputs(2, 9, 128, torch.float32, device)
+    ib.reset_launch_counts()
+    with torch.no_grad(), \
+            mock.patch.object(ib, "q8_ln_attention_block_plain", refuse), \
+            mock.patch.object(ib, "q8_ln_mlp_plain", refuse), \
+            mock.patch.object(ib, "quantize_rows", refuse):
+        _k5(p, 2)
+        _k6(p)
+    assert ib.LAUNCHES == {"q8_ln_attention_block": 1, "q8_ln_mlp": 1}
+
+
+def test_int8_wrapper_refuses_a_tracked_input_on_the_card(device):
+    p = _q8_inputs(1, 9, 128, torch.float32, device)
+    p["x"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="inference only"):
+        _k6(p)
+
+
+def test_int8_tower_through_the_kernels_matches_the_plain_tower(device):
+    from unittest import mock
+
+    from clip_gp_tpu_torch.models import clip_model, quantized
+    from clip_gp_tpu_torch.models.clip_loader import init_clip_params
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    arch = clip_model.ARCHITECTURES["TEST-ViT"]
+    model = init_clip_params(arch, seed=0, device=device)
+    qvisual = quantized.quantize_visual(model, arch)
+    images = torch.randn(6, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    got = quantized.encode_image_q8(qvisual, arch, images.to(device))
+    with mock.patch.object(ib, "q8_ln_attention_block", ib.q8_ln_attention_block_plain), \
+            mock.patch.object(ib, "q8_ln_mlp", ib.q8_ln_mlp_plain):
+        ref = quantized.encode_image_q8(qvisual, arch, images.to(device))
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+    assert bool((cos >= 0.9999).all()), cos
