@@ -20,11 +20,15 @@ exits non-zero before printing any result. Phases, each raising on failure:
    with a bf16 x — each asked for dx only (what the prompt learners launch)
    and for all seven gradients; K5 and K6 (the int8 blocks of the serving
    tower) at ViT-B/16 B=32 and B=512 in bf16 (the serving dtype) and B=32
-   in fp32. Each cell reports the error against the stated tolerance and
-   CUDA-event times (median of 20 after warm-up) of the kernel
-   (``kernel_ms``; ``ms`` in the JSON line carries the same number), the
-   plain version and a library yardstick, beside the least time the card
-   could take (``bound_ms``);
+   in fp32; K7 (standalone attention on [B, H, N, Dh]) at ViT-B/16's heads
+   (B=32 and B=512, H=12, N=197, Dh=64) and the text tower's (B=256, H=8,
+   N=77, causal) in fp32 and bf16, and at B=32 with 24 heads of 32 in bf16;
+   K8 (the qkv-attention-out block without LN or residual) at ViT-B/16
+   B=32 and B=512 in fp32 and bf16. Each cell reports the error against the
+   stated tolerance and CUDA-event times (median of 20 after warm-up) of the
+   kernel (``kernel_ms``; ``ms`` in the JSON line carries the same number),
+   the plain version and a library yardstick, beside the least time the
+   card could take (``bound_ms``);
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
    ``encode_image_q8`` (bf16, the same images) and an ``encode_text`` (256
    prompts) with random weights, and the gradient of a CoOp-shaped loss
@@ -49,10 +53,18 @@ exits non-zero before printing any result. Phases, each raising on failure:
    encode launched K5 and K6 and that no image encode launched K1/K2; it
    prints the int8 and fp32 encode rates on one batch and how often their
    top-1 agree;
-8. output: one ``{"kernels": [...]}`` line, then as the last line
+8. building blocks: the public API of K7 and K8 at ViT-B/16 width: a loss
+   through ``fused_attention_block`` (B=32, fp32) forward (K8) and backward
+   (the eager math's VJP) against autograd of its plain version, then the
+   lineage comparison of the JAX package at B=512 in bf16 and fp32: the
+   attention sub-block ``x + MHA(LN(x))`` as (a) K1, (b) LN rounded to the
+   working type, K8, ``+ x``, and (c) LN, ``F.linear`` qkv, K7,
+   ``F.linear`` out-projection, ``+ x``; (b) and (c) each held against the
+   same composition of plain versions, and all three timed;
+9. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-7 sets the launch counts to 0 just before each run it
+Each of phases 4-8 sets the launch counts to 0 just before each run it
 drives and reads them just after; a kernel's ``launches`` in the JSON line is
 the sum over those runs, and ``launches_by_path`` gives each.
 """
@@ -104,6 +116,14 @@ KERNELS = {
     "q8_ln_mlp": (
         f"{CSRC}int8_block.cu",
         "clip_gp_tpu/ops/int8_block.py:194",
+    ),
+    "flash_attention": (
+        f"{CSRC}attention.cu",
+        "clip_gp_tpu/ops/flash_attention.py:34",
+    ),
+    "fused_attention_block": (
+        f"{CSRC}ln_gemm.cu + {CSRC}attention.cu",
+        "clip_gp_tpu/ops/flash_attention.py:174",
     ),
 }
 
@@ -160,6 +180,25 @@ Q8_SHAPES = [
 Q8_TOL = {"atol": 2.0**-6, "rtol": 2.0**-7, "share": 0.999, "mean": 1e-3}
 # int8 towers after 12 layers, kernels vs plain: cosine per image
 Q8_TOWER_COS = 0.9999
+# (name, batch, heads, tokens, head width, causal, dtypes) of the K7 cells:
+# the attention cores of ViT-B/16 and the text tower at phase 2's batches,
+# and ViT-B/16's width in heads of 32 (the other head width K7 takes)
+K7_SHAPES = [
+    ("vit-b16", 32, 12, 197, 64, False, ("fp32", "bf16")),
+    ("vit-b16", 512, 12, 197, 64, False, ("fp32", "bf16")),
+    ("text", 256, 8, 77, 64, True, ("fp32", "bf16")),
+    ("vit-b16-dh32", 32, 24, 197, 32, False, ("bf16",)),
+]
+# (name, batch, tokens, width, heads) of the K8 cells, fp32 and bf16
+K8_SHAPES = [
+    ("vit-b16", 32, 197, 768, 12),
+    ("vit-b16", 512, 197, 768, 12),
+]
+# building-block compositions (b) and (c) of phase 8 against the same
+# compositions of plain versions: fp32 as TOLERANCES; bf16 two ulps, since
+# each composition rounds twice after the kernel (the block's output, then
+# the residual add), and each rounding can flip once
+LINEAGE_TOL = {"fp32": (1e-4, 1e-4), "bf16": (2.0**-5, 2.0**-6)}
 
 
 def log(msg: str) -> None:
@@ -299,16 +338,74 @@ def _k2_library(p):
 
 def _cost(kernel, b, n, d, itemsize, masked):
     """(FLOPs, bytes) the block must do and move: each input read once and
-    the output written once."""
+    the output written once. K8 is K1 without the LN parameters."""
     t = b * n
     act = 2 * t * d * itemsize  # x in, out
-    if kernel == "fused_ln_attention_block":
+    if kernel in ("fused_ln_attention_block", "fused_attention_block"):
         flops = 8 * t * d * d + 4 * b * n * n * d
-        weights = 4 * d * d * itemsize + (3 * d + d) * itemsize + 2 * d * 4
+        weights = 4 * d * d * itemsize + (3 * d + d) * itemsize
+        if kernel == "fused_ln_attention_block":
+            weights += 2 * d * 4
         return flops, act + weights + (n * n * 4 if masked else 0)
     flops = 16 * t * d * d
     weights = 8 * d * d * itemsize + (4 * d + d) * 4 + 2 * d * 4
     return flops, act + weights
+
+
+def _attention_cost(b, h, n, dh, itemsize, masked):
+    """(FLOPs, bytes) of K7: q·kᵀ and p·v, q, k and v read once, the output
+    written once, the fp32 mask read once."""
+    return (4 * b * h * n * n * dh,
+            4 * b * h * n * dh * itemsize + (n * n * 4 if masked else 0))
+
+
+def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
+    """One phase-2 cell: the kernel against its plain version at
+    TOLERANCES, then the kernel, the plain version and the library yardstick
+    timed. ``runs`` is (run_kernel, run_plain, run_library)."""
+    import torch
+
+    run_kernel, run_plain, run_library = runs
+    atol, rtol = TOLERANCES[dtype_name]
+    with torch.no_grad():
+        out = run_kernel()
+        ref = run_plain()
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = compare(out, ref, atol, rtol)
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{name}: non-finite output")
+        del out, ref
+        ms = time_ms(run_kernel)
+        plain_ms = time_ms(run_plain)
+        library_ms = time_ms(run_library)
+    t_ops = flops / peaks[dtype_name] * 1e3
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    cell = {
+        "name": name,
+        "kernel": kernel,
+        "route": "cuda",
+        "source": KERNELS[kernel][0],
+        "replaces": KERNELS[kernel][1],
+        "shape": list(shape),
+        "dtype": dtype_name,
+        "max_abs_err": max_abs,
+        "max_rel_err": max_rel,
+        "tol": {"atol": atol, "rtol": rtol},
+        "kernel_ms": ms,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    log(f"[kernels] {name}: max_abs_err {max_abs:.3e} max_rel_err "
+        f"{max_rel:.3e} (tol atol {atol:.3e} rtol {rtol:.3e}) kernel_ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+        f"bound_ms {cell['bound_ms']:.4f} ({cell['bound_by']})")
+    if not ok:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version "
+                           "past the tolerance")
+    return cell
 
 
 def phase_kernels(device, peaks):
@@ -342,51 +439,76 @@ def phase_kernels(device, peaks):
                     lambda: _k2_library(p),
                 ),
             }
-            atol, rtol = TOLERANCES[dtype_name]
-            for kernel, (run_kernel, run_plain, run_library) in runs.items():
-                with torch.no_grad():
-                    out = run_kernel()
-                    ref = run_plain()
-                    torch.cuda.synchronize()
-                    max_abs, max_rel, ok = compare(out, ref, atol, rtol)
-                    if not bool(torch.isfinite(out).all()):
-                        raise RuntimeError(f"{kernel} {shape_name} {dtype_name}: "
-                                           "non-finite output")
-                    ms = time_ms(run_kernel)
-                    plain_ms = time_ms(run_plain)
-                    library_ms = time_ms(run_library)
+            for kernel, kernel_runs in runs.items():
                 flops, nbytes = _cost(kernel, b, n, d, p["x"].element_size(),
                                       causal)
-                t_ops = flops / peaks[dtype_name] * 1e3
-                t_bytes = nbytes / peaks["bytes"] * 1e3
-                cell = {
-                    "name": f"{kernel}[{shape_name},B={b},{dtype_name}]",
-                    "kernel": kernel,
-                    "route": "cuda",
-                    "source": KERNELS[kernel][0],
-                    "replaces": KERNELS[kernel][1],
-                    "shape": [b, n, d, heads],
-                    "dtype": dtype_name,
-                    "max_abs_err": max_abs,
-                    "max_rel_err": max_rel,
-                    "tol": {"atol": atol, "rtol": rtol},
-                    "kernel_ms": ms,
-                    "ms": ms,
-                    "plain_ms": plain_ms,
-                    "library_ms": library_ms,
-                    "bound_ms": max(t_ops, t_bytes),
-                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                }
-                log(f"[kernels] {cell['name']}: max_abs_err {max_abs:.3e} "
-                    f"max_rel_err {max_rel:.3e} (tol atol {atol:.3e} rtol "
-                    f"{rtol:.3e}) kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                    f"library_ms {library_ms:.4f} bound_ms "
-                    f"{cell['bound_ms']:.4f} ({cell['bound_by']})")
-                if not ok:
-                    raise RuntimeError(f"{cell['name']}: kernel disagrees with "
-                                       "its plain version past the tolerance")
-                cells.append(cell)
+                cells.append(_forward_cell(
+                    kernel, f"{kernel}[{shape_name},B={b},{dtype_name}]",
+                    (b, n, d, heads), dtype_name, kernel_runs, flops, nbytes,
+                    peaks))
             del p, runs
+    return cells
+
+
+def _k8_library(p, heads):
+    """qkv projection, attention and out-projection from library calls."""
+    import torch.nn.functional as F
+
+    h = p["x"]
+    b, n, d = h.shape
+    qkv = F.linear(h, p["w_qkv_t"], p["b_qkv"])
+    q, k, v = (t.reshape(b, n, heads, -1).transpose(1, 2) for t in qkv.split(d, -1))
+    attn = F.scaled_dot_product_attention(q, k, v)
+    return F.linear(attn.transpose(1, 2).reshape(b, n, d), p["w_out_t"], p["b_out"])
+
+
+def phase_attention_kernels(device, peaks):
+    """K7 and K8 cells: kernel vs plain, timed beside the plain version and
+    the library yardstick (SDPA for K7)."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    cells = []
+    for shape_name, b, heads, n, dh, causal, dtype_names in K7_SHAPES:
+        for dtype_name in dtype_names:
+            dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+            g = torch.Generator().manual_seed(400 + len(cells))
+            q, k, v = (torch.randn(b, heads, n, dh, generator=g).to(device, dtype)
+                       for _ in range(3))
+            mask = (torch.triu(torch.full((n, n), float("-inf"), device=device), 1)
+                    if causal else None)
+            runs = (lambda: fa.flash_attention(q, k, v, mask),
+                    lambda: fa.attention_plain(q, k, v, mask),
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=causal))
+            flops, nbytes = _attention_cost(b, heads, n, dh, q.element_size(),
+                                            causal)
+            cells.append(_forward_cell(
+                "flash_attention",
+                f"flash_attention[{shape_name},B={b},H={heads},N={n},Dh={dh},"
+                f"{dtype_name}]", (b, heads, n, dh), dtype_name, runs, flops,
+                nbytes, peaks))
+            del q, k, v, runs
+    for shape_name, b, n, d, heads in K8_SHAPES:
+        for dtype_name in ("fp32", "bf16"):
+            dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+            p = _block_inputs(b, n, d, False, dtype, device, seed=500 + len(cells))
+            for key in ("w_qkv", "w_out"):
+                p[key + "_t"] = p[key].t().contiguous()
+            args = (p["x"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], heads)
+            runs = (lambda: fa.fused_attention_block(*args),
+                    lambda: fa.attention_block_plain(*args),
+                    lambda: _k8_library(p, heads))
+            flops, nbytes = _cost("fused_attention_block", b, n, d,
+                                  p["x"].element_size(), False)
+            cells.append(_forward_cell(
+                "fused_attention_block",
+                f"fused_attention_block[{shape_name},B={b},{dtype_name}]",
+                (b, n, d, heads), dtype_name, runs, flops, nbytes, peaks))
+            del p, args, runs
+        torch.cuda.empty_cache()
     return cells
 
 
@@ -820,9 +942,10 @@ def _tower_grad(model, device, n_prompts=100, n=24, n_images=32):
     if err > TOWER_TOL * scale:
         raise RuntimeError("tower gradient: kernels disagree with the plain versions")
     layers = arch.transformer_layers
-    if min(launches.values()) < layers:
-        raise RuntimeError(f"tower gradient: expected each kernel {layers} times, "
-                           f"got {launches}")
+    blocks = ("fused_ln_attention_block", "fused_ln_mlp", "ln_attn_bwd", "ln_mlp_bwd")
+    if min(launches[k] for k in blocks) < layers:
+        raise RuntimeError(f"tower gradient: expected each of {blocks} {layers} "
+                           f"times, got {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -1233,6 +1356,117 @@ def phase_serving(device, backbone="ViT-B/16", n_pngs=64):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+def _lineage_c(p, heads, attention):
+    """``x + MHA(LN(x))`` as LN rounded to the working type, ``F.linear``
+    qkv, ``attention`` on contiguous [B, H, N, Dh] heads, ``F.linear``
+    out-projection and the residual."""
+    import torch.nn.functional as F
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    x = p["x"]
+    b, n, d = x.shape
+    h = fa.layer_norm_f32(x, p["ln_scale"], p["ln_bias"]).to(x.dtype)
+    qkv = F.linear(h, p["w_qkv_t"], p["b_qkv"])
+    q, k, v = (t.reshape(b, n, heads, -1).transpose(1, 2).contiguous()
+               for t in qkv.split(d, -1))
+    attn = attention(q, k, v).transpose(1, 2).reshape(b, n, d)
+    return x + F.linear(attn, p["w_out_t"], p["b_out"])
+
+
+def _lineage_b(p, heads, block):
+    """``x + MHA(LN(x))`` as LN rounded to the working type, ``block`` (K8
+    or its plain version) and the residual."""
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    x = p["x"]
+    h = fa.layer_norm_f32(x, p["ln_scale"], p["ln_bias"]).to(x.dtype)
+    return block(h, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], heads) + x
+
+
+def phase_blocks(device, n=197, d=768, heads=12, batch=32, lineage_batch=512):
+    """K7 and K8 through their public API at ViT-B/16 width: a loss through
+    K8's autograd Function, then the lineage comparison. Returns the
+    launches of this path."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    names = ("x", "w_qkv", "b_qkv", "w_out", "b_out")
+    p = _block_inputs(batch, n, d, False, torch.float32, device, seed=600)
+    lineage = {}  # dtype name -> (inputs, the three variants)
+    for dtype_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        q = _block_inputs(lineage_batch, n, d, False, dtype, device, seed=601)
+        for key in ("w_qkv", "w_out"):
+            q[key + "_t"] = q[key].t().contiguous()
+        lineage[dtype_name] = (q, {
+            "a": lambda q=q: fa.fused_ln_attention_block(
+                q["x"], q["ln_scale"], q["ln_bias"], q["w_qkv"], q["b_qkv"],
+                q["w_out"], q["b_out"], heads),
+            "b": lambda q=q: _lineage_b(q, heads, fa.fused_attention_block),
+            "c": lambda q=q: _lineage_c(q, heads, fa.flash_attention),
+        })
+
+    def loss(block, leaves):
+        return (block(*leaves, heads).float() ** 2).mean()
+
+    _reset_counts()
+    leaves = [p[k].detach().clone().requires_grad_(True) for k in names]
+    value = loss(fa.fused_attention_block, leaves)
+    got = torch.autograd.grad(value, leaves)
+    with torch.no_grad():
+        outs = {dtype_name: {key: run() for key, run in runs.items()}
+                for dtype_name, (_, runs) in lineage.items()}
+    torch.cuda.synchronize()
+    launches = _counts()
+
+    ref_leaves = [p[k].detach().clone().requires_grad_(True) for k in names]
+    ref_value = loss(fa.attention_block_plain, ref_leaves)
+    ref = torch.autograd.grad(ref_value, ref_leaves)
+    max_abs, max_rel, ok = _compare_grads(got, ref)
+    log(f"[blocks] fused_attention_block ViT-B/16 B={batch} fp32: loss "
+        f"{value.item():.6f} (plain {ref_value.item():.6f}); gradients of "
+        f"{names} vs autograd of the plain version max_abs_err {max_abs:.3e} "
+        f"max_rel_err {max_rel:.3e} (tol {BWD_RTOL['fp32']} x (max|plain| + "
+        f"|plain|))")
+    if not ok or abs(value.item() - ref_value.item()) > 1e-4 * abs(ref_value.item()):
+        raise RuntimeError("blocks: K8's Function disagrees with autograd of "
+                           "the plain version")
+    del leaves, ref_leaves, got, ref
+
+    plain = {"b": lambda q: _lineage_b(q, heads, fa.attention_block_plain),
+             "c": lambda q: _lineage_c(q, heads, fa.attention_plain)}
+    for dtype_name, (q, runs) in lineage.items():
+        atol, rtol = LINEAGE_TOL[dtype_name]
+        got = outs.pop(dtype_name)
+        with torch.no_grad():
+            for key, fn in plain.items():
+                max_abs, max_rel, ok = compare(got[key], fn(q), atol, rtol)
+                log(f"[blocks] lineage ({key}) ViT-B/16 B={lineage_batch} "
+                    f"{dtype_name}: vs the plain composition max_abs_err "
+                    f"{max_abs:.3e} max_rel_err {max_rel:.3e} (tol atol "
+                    f"{atol:.3e} rtol {rtol:.3e})")
+                if not ok or not bool(torch.isfinite(got[key]).all()):
+                    raise RuntimeError(f"blocks: lineage ({key}) {dtype_name} "
+                                       "disagrees with its plain composition")
+            del got
+            times = {key: time_ms(run) for key, run in runs.items()}
+        log(f"[blocks] lineage ViT-B/16 B={lineage_batch} {dtype_name}, "
+            f"x + MHA(LN(x)) in ms: (a) K1 {times['a']:.4f}; (b) LN, K8, + x "
+            f"{times['b']:.4f}; (c) LN, F.linear, K7, F.linear, + x "
+            f"{times['c']:.4f}")
+    del lineage
+    torch.cuda.empty_cache()
+    _check_launches("blocks", launches, {
+        "fused_attention_block": 3, "flash_attention": 2,
+        "fused_ln_attention_block": 2})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1248,10 +1482,12 @@ def main() -> int:
     device, smi = phase_build()
     peaks = card_peaks(torch.cuda.get_device_name(0))
     cells = (phase_kernels(device, peaks) + phase_bwd_kernels(device, peaks)
-             + phase_q8_kernels(device, peaks))
+             + phase_q8_kernels(device, peaks)
+             + phase_attention_kernels(device, peaks))
     phase_towers(device)
     by_path = {"adapter_gp": phase_trainer(), "coop": phase_coop(),
-               "cocoop": phase_cocoop(), **phase_serving(device)}
+               "cocoop": phase_cocoop(), **phase_serving(device),
+               "blocks": phase_blocks(device)}
     for cell in cells:
         counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())

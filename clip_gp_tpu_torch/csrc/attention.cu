@@ -1,13 +1,21 @@
-// Multi-head attention core of K1: the per-head loop of _qkv_heads_accumulate
-// inside _fused_ln_block_kernel (clip_gp_tpu/ops/flash_attention.py), for
-// head width 64 and sequences of at most 256 tokens (every CLIP tower here:
-// ViT-B/16 197, ViT-B/32 50, text 77).
+// Multi-head attention cores, one kernel for three callers:
+// - K1's: the per-head loop of _qkv_heads_accumulate inside
+//   _fused_ln_block_kernel (clip_gp_tpu/ops/flash_attention.py), also the
+//   core of K8 (_fused_block_kernel, the same loop without LN): q|k|v read at
+//   column offsets of qkv [B, N, 3D] (heads contiguous within each third),
+//   the output written to attn [B, N, D], head h at columns [64h, 64h + 64);
+// - K7's: _attention_kernel of the same file, standalone attention on
+//   contiguous q, k, v [B, H, N, Dh] with the output [B, H, N, Dh];
+// - K5's (below).
+// The kernel takes each operand's batch, head and row strides, so the two
+// layouts differ only in the strides the entry points pass. Head width 32 or
+// 64 and sequences of at most 256 tokens (every CLIP tower here: ViT-B/16
+// 197, ViT-B/32 50, text 77; the JAX tests' heads of 32).
 //
-// In:  qkv [B, N, 3D] in the working type T (q | k | v, heads contiguous
-//      within each third), optional additive fp32 mask [N, N].
-// Out: attn [B, N, D] in T, head h at columns [64h, 64h + 64).
-// Per head, as the Pallas kernel: q is scaled by 1/sqrt(64) and rounded to
-// T, scores q.k accumulate in fp32, the mask is added, softmax runs in fp32
+// Per head, as the Pallas kernels: q is scaled by 1/sqrt(Dh) in the working
+// type T (the factor itself rounded to T, as JAX casts a Python scalar to the
+// array's type; exactly 0.125 at Dh = 64), scores q.k accumulate in fp32,
+// the optional additive fp32 mask [N, N] is added, softmax runs in fp32
 // (max-subtracted exp, divided by the row sum), the probabilities round to T,
 // p.v accumulates in fp32 and rounds to T.
 //
@@ -21,58 +29,113 @@
 //
 // One block per (query tile of 64 rows, head, batch element): the head's K
 // and V for the whole sequence sit in shared memory as fp32 (about 100 KB at
-// N = 197), each warp walks 8 query rows, each lane scores up to 8 keys, and
-// the [N, N] scores never reach device memory. Keys are exactly the N real
-// tokens (no padding), so no row is ever masked throughout by the kernel
-// itself.
+// N = 197, Dh = 64), loaded with 16-byte vector loads; each warp walks 8
+// query rows, each lane scores up to 8 keys, reading 4 values of a key row
+// per shared-memory load (one load feeds 4 FMAs, taken in the order of d, so
+// the sums are those of a scalar loop), and the [N, N] scores never reach
+// device memory. Keys are exactly the N real tokens (no padding, which the
+// Pallas kernels mask at -inf), so no row is ever masked throughout by the
+// kernel itself. The 16-byte loads need 16-byte aligned operands and row,
+// head and batch strides that are multiples of 16 bytes, which both layouts
+// give at head widths 32 and 64 (the wrappers check the base pointers).
 //
-// What bounds it on an H100: operations, at 4*B*N^2*D FLOPs for B*N*3D
-// inputs read once; the attention core is about a tenth of K1's work. This
-// first version runs on the CUDA cores in fp32 for both working types;
-// moving the two products onto the tensor cores is later work.
+// What bounds it on an H100: for K7 in bf16, bytes (4*B*H*N^2*Dh FLOPs for
+// 4*B*H*N*Dh values moved, about 100 FLOPs a byte at N = 197, under the
+// tensor cores' ridge of about 295); in fp32, operations on the CUDA cores.
+// Inside K1/K8 the core is about a tenth of the block's work. This first
+// version runs on the CUDA cores in fp32 for both working types and reads
+// each head's K and V once per query tile; moving the two products onto the
+// tensor cores is later work.
 #include "common.cuh"
 
 using namespace cgt;
 
 namespace {
 
-constexpr int DH = 64;        // head width
 constexpr int QT = 64;        // query rows per block
 constexpr int WARPS = 8;      // 256 threads
 constexpr int MAX_N = 256;    // 8 keys per lane
-constexpr int KS_LD = DH + 1; // padded K rows: lanes read distinct banks
 
+// element offsets of one operand: batch element, head, token row (a row
+// offset within one head stays far below 2^31)
+struct Strides {
+  long long batch, head;
+  int row;
+};
+
+// K rows padded to DH + 4 floats: 16-byte aligned for float4 reads, and the
+// 8 lanes of each quarter-warp phase of a 16-byte read hit distinct banks
+template <int DH>
+constexpr int kKsLd = DH + 4;
+
+template <int DH>
 size_t smem_bytes(int n) {
-  return sizeof(float) *
-         ((size_t)n * KS_LD + (size_t)n * DH + QT * DH + WARPS * MAX_N);
+  return sizeof(float) * ((size_t)n * kKsLd<DH> + (size_t)n * DH + QT * DH +
+                          WARPS * MAX_N);
 }
 
-template <typename T, bool QUANT>
+// the 16 / sizeof(T) elements at a 16-byte aligned src, as fp32
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) dst[i] = to_f32(e[i]);
+}
+
+// n floats (a multiple of 4) to a 16-byte aligned dst
+template <int n>
+__device__ __forceinline__ void store_f32(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < n; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
+}
+
+template <typename T, int DH, bool QUANT>
 __global__ void __launch_bounds__(WARPS * 32)
-    attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ mask,
                      T* __restrict__ out, int8_t* __restrict__ q_out,
-                     float* __restrict__ q_scale, int N, int D) {
+                     float* __restrict__ q_scale, int N, Strides in,
+                     Strides os) {
+  constexpr int KS_LD = kKsLd<DH>;
+  constexpr int OUTS = DH / 32;               // outputs per lane
+  constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
+  constexpr int CHUNKS = DH / VEC;            // 16-byte loads per row
   extern __shared__ float smem[];
-  float* Ks = smem;                  // [N][KS_LD]
+  float* Ks = smem;                    // [N][KS_LD]
   float* Vs = Ks + (size_t)N * KS_LD;  // [N][DH]
   float* Qs = Vs + (size_t)N * DH;     // [QT][DH]
-  float* Ps = Qs + QT * DH;          // [WARPS][MAX_N]
+  float* Ps = Qs + QT * DH;            // [WARPS][MAX_N]
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const size_t row_stride = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * N * row_stride;
-  const float scale = 1.f / sqrtf((float)DH);  // exactly 0.125
+  const long long in_off = b * in.batch + h * in.head;
+  const T* qb = q + in_off;
+  const T* kb = k + in_off;
+  const T* vb = v + in_off;
+  // 1/sqrt(Dh) in the working type
+  const float scale = round_to<T>((float)(1.0 / sqrt((double)DH)));
 
-  for (int idx = threadIdx.x; idx < N * DH; idx += blockDim.x) {
-    const int j = idx / DH, d = idx % DH;
-    const T* row = base + j * row_stride + h * DH + d;
-    Ks[j * KS_LD + d] = to_f32(row[D]);
-    Vs[j * DH + d] = to_f32(row[2 * D]);
+  for (int idx = threadIdx.x; idx < N * CHUNKS; idx += blockDim.x) {
+    const int j = idx / CHUNKS, d = idx % CHUNKS * VEC;
+    float kv[VEC], vv[VEC];
+    load16(kb + j * in.row + d, kv);
+    load16(vb + j * in.row + d, vv);
+    store_f32<VEC>(Ks + j * KS_LD + d, kv);
+    store_f32<VEC>(Vs + j * DH + d, vv);
   }
-  for (int idx = threadIdx.x; idx < QT * DH; idx += blockDim.x) {
-    const int i = idx / DH, d = idx % DH, qi = q0 + i;
-    Qs[idx] = qi < N
-                  ? round_to<T>(to_f32(base[qi * row_stride + h * DH + d]) * scale)
-                  : 0.f;
+  for (int idx = threadIdx.x; idx < QT * CHUNKS; idx += blockDim.x) {
+    const int i = idx / CHUNKS, d = idx % CHUNKS * VEC, qi = q0 + i;
+    float qv[VEC];
+    if (qi < N) {
+      load16(qb + qi * in.row + d, qv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[e] = round_to<T>(qv[e] * scale);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[e] = 0.f;
+    }
+    store_f32<VEC>(Qs + i * DH + d, qv);
   }
   __syncthreads();
 
@@ -82,17 +145,21 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int i = warp; i < QT; i += WARPS) {
     const int qi = q0 + i;
     if (qi >= N) break;  // uniform across the warp
-    const float* q = Qs + i * DH;
+    const float* qr = Qs + i * DH;
     float s[MAX_N / 32];
 #pragma unroll
     for (int t = 0; t < MAX_N / 32; ++t) s[t] = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      const float qd = q[d];
+    for (int d = 0; d < DH; d += 4) {
+      const float4 qd = *reinterpret_cast<const float4*>(qr + d);
 #pragma unroll
       for (int t = 0; t < MAX_N / 32; ++t) {
         if (t < slots) {
           const int j = min(lane + 32 * t, N - 1);  // clamped; discarded below
-          s[t] = fmaf(qd, Ks[j * KS_LD + d], s[t]);
+          const float4 kd = *reinterpret_cast<const float4*>(Ks + j * KS_LD + d);
+          s[t] = fmaf(qd.x, kd.x, s[t]);
+          s[t] = fmaf(qd.y, kd.y, s[t]);
+          s[t] = fmaf(qd.z, kd.z, s[t]);
+          s[t] = fmaf(qd.w, kd.w, s[t]);
         }
       }
     }
@@ -120,66 +187,91 @@ __global__ void __launch_bounds__(WARPS * 32)
       if (t < slots && j < N) P[j] = round_to<T>(s[t] / sum);
     }
     __syncwarp();
-    float o0 = 0.f, o1 = 0.f;
+    float o[OUTS];
+#pragma unroll
+    for (int c = 0; c < OUTS; ++c) o[c] = 0.f;
     for (int j = 0; j < N; ++j) {
       const float p = P[j];
-      o0 = fmaf(p, Vs[j * DH + lane], o0);
-      o1 = fmaf(p, Vs[j * DH + lane + 32], o1);
+#pragma unroll
+      for (int c = 0; c < OUTS; ++c) o[c] = fmaf(p, Vs[j * DH + lane + 32 * c], o[c]);
     }
-    const size_t row = (size_t)b * N + qi;
+    const long long orow = b * os.batch + h * os.head + qi * os.row;
     if constexpr (QUANT) {
-      const float amax = warp_max(fmaxf(fabsf(o0), fabsf(o1)));
+      float amax = 0.f;
+#pragma unroll
+      for (int c = 0; c < OUTS; ++c) amax = fmaxf(amax, fabsf(o[c]));
+      amax = warp_max(amax);
       const float sc = fmaxf(__fdiv_rn(amax, 127.f), kQuantEps);
-      int8_t* qrow = q_out + row * D + h * DH;
-      qrow[lane] = quantize_code(o0, sc);
-      qrow[lane + 32] = quantize_code(o1, sc);
-      if (lane == 0) q_scale[row * gridDim.y + h] = sc;
+#pragma unroll
+      for (int c = 0; c < OUTS; ++c) q_out[orow + lane + 32 * c] = quantize_code(o[c], sc);
+      if (lane == 0) q_scale[((size_t)b * N + qi) * gridDim.y + h] = sc;
     } else {
-      T* orow = out + row * D + h * DH;
-      orow[lane] = from_f32<T>(o0);
-      orow[lane + 32] = from_f32<T>(o1);
+#pragma unroll
+      for (int c = 0; c < OUTS; ++c) out[orow + lane + 32 * c] = from_f32<T>(o[c]);
     }
     __syncwarp();  // P is rewritten by the warp's next query
   }
 }
 
-template <typename T, bool QUANT>
-int launch(const void* qkv, const void* mask, void* out, void* q_scale, int B,
-           int N, int H, int D, cudaStream_t s) {
-  const size_t bytes = smem_bytes(N);
+template <typename T, int DH, bool QUANT>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           void* out, void* q_scale, int B, int N, int H, Strides in,
+           Strides os, cudaStream_t s) {
   // the shared-memory opt-in is a property of the function on a device: set
-  // it once per working type and device, not on every launch
+  // it once per instantiation and device, not on every launch
   static unsigned long long opted_in = 0;  // bit d: device d
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !((opted_in >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(attention_kernel<T, QUANT>,
+    err = cudaFuncSetAttribute(attention_kernel<T, DH, QUANT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes(MAX_N));
+                               (int)smem_bytes<DH>(MAX_N));
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) opted_in |= 1ull << dev;
   }
   const dim3 grid((N + QT - 1) / QT, H, B), block(WARPS * 32);
-  attention_kernel<T, QUANT><<<grid, block, bytes, s>>>(
-      (const T*)qkv, (const float*)mask, QUANT ? nullptr : (T*)out,
-      QUANT ? (int8_t*)out : nullptr, (float*)q_scale, N, D);
+  attention_kernel<T, DH, QUANT><<<grid, block, smem_bytes<DH>(N), s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
+      QUANT ? nullptr : (T*)out, QUANT ? (int8_t*)out : nullptr,
+      (float*)q_scale, N, in, os);
   return (int)cudaGetLastError();
+}
+
+// qkv [B, N, 3D] -> [B, N, D], head width 64 (K1, K8 and K5)
+template <typename T, bool QUANT>
+int launch_packed(const void* qkv, const void* mask, void* out, void* q_scale,
+                  int B, int N, int H, int D, cudaStream_t s) {
+  constexpr int DH = 64;
+  const Strides in{(long long)N * 3 * D, DH, 3 * D};
+  const Strides os{(long long)N * D, DH, D};
+  const T* base = (const T*)qkv;
+  return launch<T, DH, QUANT>(base, base + D, base + 2 * D, mask, out, q_scale,
+                              B, N, H, in, os, s);
+}
+
+// q, k, v, out [B, H, N, DH] (K7)
+template <typename T, int DH>
+int launch_bhnd(const void* q, const void* k, const void* v, const void* mask,
+                void* out, int B, int N, int H, cudaStream_t s) {
+  const Strides st{(long long)H * N * DH, (long long)N * DH, DH};
+  return launch<T, DH, false>(q, k, v, mask, out, nullptr, B, N, H, st, st, s);
 }
 
 }  // namespace
 
-// head width 64 and N <= 256 are checked by the Python wrapper; refused here
+// head widths and N <= 256 are checked by the Python wrappers; refused here
 // too so a bad call fails loudly instead of reading out of bounds
 extern "C" int cgt_attention(const void* qkv, const void* mask, void* out,
                              int B, int N, int H, int D, int dtype,
                              void* stream) {
-  if (N < 1 || N > MAX_N || D != H * DH) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > MAX_N || D != H * 64) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
-    return launch<float, false>(qkv, mask, out, nullptr, B, N, H, D, s);
+    return launch_packed<float, false>(qkv, mask, out, nullptr, B, N, H, D, s);
   if (dtype == kBF16)
-    return launch<__nv_bfloat16, false>(qkv, mask, out, nullptr, B, N, H, D, s);
+    return launch_packed<__nv_bfloat16, false>(qkv, mask, out, nullptr, B, N,
+                                               H, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -188,12 +280,30 @@ extern "C" int cgt_attention(const void* qkv, const void* mask, void* out,
 extern "C" int cgt_attention_q8(const void* qkv, const void* mask, void* q_out,
                                 void* q_scale, int B, int N, int H, int D,
                                 int dtype, void* stream) {
-  if (N < 1 || N > MAX_N || D != H * DH) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > MAX_N || D != H * 64) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
-    return launch<float, true>(qkv, mask, q_out, q_scale, B, N, H, D, s);
+    return launch_packed<float, true>(qkv, mask, q_out, q_scale, B, N, H, D, s);
   if (dtype == kBF16)
-    return launch<__nv_bfloat16, true>(qkv, mask, q_out, q_scale, B, N, H, D,
-                                       s);
+    return launch_packed<__nv_bfloat16, true>(qkv, mask, q_out, q_scale, B, N,
+                                              H, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7: standalone attention on contiguous q, k, v, out [B, H, N, Dh],
+// Dh 32 or 64
+extern "C" int cgt_attention_bhnd(const void* q, const void* k, const void* v,
+                                  const void* mask, void* out, int B, int N,
+                                  int H, int Dh, int dtype, void* stream) {
+  if (N < 1 || N > MAX_N || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == kF32 && Dh == 32)
+    return launch_bhnd<float, 32>(q, k, v, mask, out, B, N, H, s);
+  if (dtype == kF32 && Dh == 64)
+    return launch_bhnd<float, 64>(q, k, v, mask, out, B, N, H, s);
+  if (dtype == kBF16 && Dh == 32)
+    return launch_bhnd<__nv_bfloat16, 32>(q, k, v, mask, out, B, N, H, s);
+  if (dtype == kBF16 && Dh == 64)
+    return launch_bhnd<__nv_bfloat16, 64>(q, k, v, mask, out, B, N, H, s);
   return (int)cudaErrorInvalidValue;
 }

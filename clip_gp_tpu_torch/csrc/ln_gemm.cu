@@ -1,7 +1,7 @@
 // LN-prologue GEMM with a fused epilogue: the four matrix products inside
 // the Pallas kernels _fused_ln_block_kernel (K1) and _fused_mlp_kernel (K2)
-// of clip_gp_tpu/ops/flash_attention.py, plus the LayerNorm row statistics
-// they need.
+// of clip_gp_tpu/ops/flash_attention.py, the two of _fused_block_kernel (K8)
+// of the same file, plus the LayerNorm row statistics they need.
 //
 //   out[M,N] = epilogue( prologue(A)[M,K] @ W[K,N] )
 //
@@ -11,6 +11,9 @@
 //           (K1) and c_fc (K2). The out-projection and c_proj read A as is.
 // epilogue: K1 qkv:      T(T(acc) + b)       (the kernel rounds the product
 //                                             before adding b_qkv)
+//           K8 qkv and out-proj: T(T(acc) + b), the same without the LN
+//                                prologue (b_out is added after the sum is
+//                                rounded, in T: the wrapper passes b rounded)
 //           K2 c_fc:     T(gelu(acc + b))    (QuickGELU in fp32)
 //           K1 out-proj: T((r + acc) + b)    (residual + bias in fp32)
 //           K2 c_proj:   T(r + (acc + b))
@@ -41,6 +44,7 @@ enum Epilogue {
   kEpiGelu = 1,
   kEpiResidAttn = 2,
   kEpiResidMlp = 3,
+  kEpiBias = 4,
 };
 
 // the qkv and c_fc products normalise their input rows
@@ -50,7 +54,7 @@ constexpr bool kHasLn = (EPI == kEpiQkv || EPI == kEpiGelu);
 template <int EPI, typename T>
 __device__ __forceinline__ T apply_epilogue(float acc, float b, const T* resid,
                                             size_t idx) {
-  if constexpr (EPI == kEpiQkv) {
+  if constexpr (EPI == kEpiQkv || EPI == kEpiBias) {
     return from_f32<T>(round_to<T>(acc) + b);
   } else if constexpr (EPI == kEpiGelu) {
     const float h = acc + b;
@@ -322,8 +326,8 @@ extern "C" int cgt_ln_stats(const void* x, void* stats, int rows, int cols,
   return (int)cudaGetLastError();
 }
 
-// stats/gamma/beta are read by the LN epilogues (qkv, c_fc) only, resid by
-// the residual ones (out-proj, c_proj) only; the others may be null
+// stats/gamma/beta are read by the LN epilogues (K1 qkv, c_fc) only, resid
+// by the residual ones (out-proj, c_proj) only; the others may be null
 extern "C" int cgt_gemm(const void* a, const void* w, const void* bias,
                         const void* resid, const void* stats,
                         const void* gamma, const void* beta, void* out, int M,
@@ -342,6 +346,9 @@ extern "C" int cgt_gemm(const void* a, const void* w, const void* bias,
     case kEpiResidMlp:
       return launch_gemm<kEpiResidMlp>(a, w, bias, resid, stats, gamma, beta,
                                        out, M, N, K, dtype, s);
+    case kEpiBias:
+      return launch_gemm<kEpiBias>(a, w, bias, resid, stats, gamma, beta, out,
+                                   M, N, K, dtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

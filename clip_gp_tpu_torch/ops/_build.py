@@ -46,6 +46,7 @@ SIGNATURES = {
     "cgt_q8_quantize": [_c_void_p] * 5 + [_c_int] * 3 + [_c_void_p],
     "cgt_q8_gemm": [_c_void_p] * 7 + [_c_int] * 6 + [_c_void_p],
     "cgt_attention_q8": [_c_void_p] * 4 + [_c_int] * 5 + [_c_void_p],
+    "cgt_attention_bhnd": [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p],
 }
 
 _lib: Optional[ctypes.CDLL] = None

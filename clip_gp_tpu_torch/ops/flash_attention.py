@@ -1,4 +1,5 @@
-"""The fused transformer sub-blocks of the CLIP towers and their gradients.
+"""The fused transformer sub-blocks of the CLIP towers, their gradients, and
+the two attention building blocks of the JAX package.
 
 - ``fused_ln_attention_block`` (K1) computes ``x + MHA(LN(x)·Wqkv + bqkv)·Wout
   + bout``. It replaces the Pallas kernel ``_fused_ln_block_kernel`` of
@@ -10,6 +11,13 @@
   block's primal inputs and the output gradient they recompute the block in
   fp32 (LN, qkv or the ``[T,4D]`` hidden, the softmax) and return dx, dγ,
   dβ and the four weight and bias gradients.
+- ``flash_attention`` (K7) is standalone attention ``softmax(q·kᵀ/√Dh +
+  mask)·v`` on ``[B, H, N, Dh]``, replacing ``_attention_kernel``.
+- ``fused_attention_block`` (K8) computes ``MHA(h·Wqkv + bqkv)·Wout + bout``
+  on an already normed ``h`` (no LN, no residual), replacing
+  ``_fused_block_kernel``. Like K1 and K7 it has no caller on the towers'
+  path: the JAX package keeps both as tested building blocks and as the
+  lineage of its block-level fusion, and so does the port.
 
 On a CUDA tensor each wrapper launches the hand-written kernels of
 ``clip_gp_tpu_torch/csrc`` (built at first use, see ``_build.py``):
@@ -18,13 +26,18 @@ bias + residual epilogue; K2 = LN statistics → LN-prologue GEMM with
 QuickGELU epilogue → GEMM with bias + residual epilogue; K3 and K4 = the fp32
 GEMMs of ``gemm_bwd.cu`` (transposed operands, LN and QuickGELU prologues, a
 QuickGELU-derivative epilogue), the attention backward of
-``attention_bwd.cu`` and the LN backward and column sums of ``ln_bwd.cu``.
-In this version the qkv and hidden intermediates pass through device memory.
-On a CPU tensor the wrapper runs the plain PyTorch version beside it
-(``ln_attention_block_plain``, ``ln_mlp_plain``, ``ln_attn_bwd_plain``,
-``ln_mlp_bwd_plain``), which rounds where the Pallas kernel rounds. There is
-no other route: a CUDA tensor never reaches the plain version through a
-wrapper.
+``attention_bwd.cu`` and the LN backward and column sums of ``ln_bwd.cu``;
+K7 = the attention core of ``attention.cu`` reading contiguous heads; K8 =
+GEMM with a bias epilogue (qkv) → K1's attention core → GEMM with a bias
+epilogue. In this version the qkv and hidden intermediates pass through
+device memory. On a CPU tensor the wrapper runs the plain PyTorch version
+beside it (``ln_attention_block_plain``, ``ln_mlp_plain``,
+``ln_attn_bwd_plain``, ``ln_mlp_bwd_plain``, ``attention_plain``,
+``attention_block_plain``), which rounds where the Pallas kernel rounds.
+There is no other route: a CUDA tensor never reaches the plain version
+through a wrapper. So the JAX package's ``use_flash`` (Pallas on a TPU,
+eager math elsewhere, and its ``CLIP_GP_TPU_DISABLE_FLASH`` opt-out) has
+no counterpart here.
 
 K1 and K2 take fp32 or bf16 activations (the frozen encodes of the training
 path run in fp32), head width 64 and sequences of at most 256 tokens. They
@@ -34,6 +47,14 @@ the block's primal inputs and the backward recomputes the rest, as the TPU
 kernels do and as the JAX towers' per-block ``jax.checkpoint`` does. The
 weight gradients are computed only when autograd asks for them. What bounds
 each kernel on an H100 is stated at the top of its CUDA source.
+
+K7 takes head widths 32 and 64 and is not differentiable, as the Pallas
+kernel has no JVP: a call with autograd on and an input that needs a
+gradient raises. K8 is differentiable in every input but the mask: its
+backward is the VJP of the eager math (``attention_block_xla``) recomputed
+from the saved inputs, as the JAX package's custom VJP is. The JAX package
+has no backward kernel for K8, so neither has the port; that backward is
+the port of the JAX one, not a fallback.
 
 ``LAUNCHES`` counts each wrapper's kernel launches (one per call on a CUDA
 tensor), so a run can show that its encodes went through the kernels.
@@ -50,15 +71,18 @@ from clip_gp_tpu_torch.ops import _build
 LAUNCHES: Dict[str, int] = {
     "fused_ln_attention_block": 0, "fused_ln_mlp": 0,
     "ln_attn_bwd": 0, "ln_mlp_bwd": 0,
+    "flash_attention": 0, "fused_attention_block": 0,
 }
 
 HEAD_DIM = 64
+# the head widths K7 takes
+ATTENTION_HEAD_DIMS = (32, 64)
 MAX_TOKENS = 256
 LN_EPS = 1e-5
 
 # C-side enums of csrc/common.cuh, csrc/ln_gemm.cu and csrc/gemm_bwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_EPI_QKV, _EPI_GELU, _EPI_RESID_ATTN, _EPI_RESID_MLP = 0, 1, 2, 3
+_EPI_QKV, _EPI_GELU, _EPI_RESID_ATTN, _EPI_RESID_MLP, _EPI_BIAS = range(5)
 # backward products (gemm_bwd.cu): N = A·B, T = the operand read transposed
 (_OP_LN_NN_BIAS, _OP_NT, _OP_NT_GELU_BWD, _OP_LN_TN, _OP_TN,
  _OP_GELU_TN) = range(6)
@@ -99,6 +123,37 @@ def _mm(a, b):
     return a.float() @ b.float()
 
 
+def attention_plain(q, k, v, mask=None):
+    """Plain PyTorch K7, rounding where ``_attention_kernel`` and its wrapper
+    round: q [B, H, N, Dh] is scaled by 1/√Dh in its dtype (the factor
+    rounded to it, as JAX casts a Python scalar), scores accumulate in fp32
+    with the fp32 mask added, the fp32 softmax's probabilities round to the
+    working type, and p·v accumulates in fp32 and rounds to it."""
+    dt = q.dtype
+    q = q * torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=dt, device=q.device)
+    scores = _mm(q, k.transpose(-1, -2))
+    if mask is not None:
+        scores = scores + mask.float()
+    scores = scores - scores.amax(-1, keepdim=True)
+    weights = scores.exp()
+    weights = weights / weights.sum(-1, keepdim=True)
+    return _mm(weights.to(dt), v).to(dt)
+
+
+def _mha_plain(h, w_qkv, b_qkv, num_heads, mask):
+    """The heads' attention output [B, N, D] in h's dtype, as
+    ``_qkv_heads_accumulate`` computes it before the out-projection: qkv =
+    T(T(h·Wqkv) + T(bqkv)), then ``attention_plain`` per head."""
+    dt = h.dtype
+    b, n, d = h.shape
+    qkv = _mm(h, w_qkv.to(dt)).to(dt) + b_qkv.to(dt)
+    q, k, v = (
+        t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+        for t in qkv.split(d, dim=-1)
+    )
+    return attention_plain(q, k, v, mask).transpose(1, 2).reshape(b, n, d)
+
+
 def ln_attention_block_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
                              num_heads: int, mask=None):
     """Plain PyTorch K1, rounding where ``_fused_ln_block_kernel`` rounds:
@@ -107,25 +162,43 @@ def ln_attention_block_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     out-projection sums the heads in fp32 and adds the residual and b_out in
     fp32."""
     dt = x.dtype
-    b, n, d = x.shape
-    dh = d // num_heads
     x32 = x.float()
     h = layer_norm_f32(x32, ln_scale, ln_bias).to(dt)
-    qkv = _mm(h, w_qkv.to(dt)).to(dt) + b_qkv.to(dt)
+    attn = _mha_plain(h, w_qkv, b_qkv, num_heads, mask)
+    return (x32 + _mm(attn, w_out.to(dt)) + b_out.float()).to(dt)
+
+
+def attention_block_plain(h, w_qkv, b_qkv, w_out, b_out, num_heads: int,
+                          mask=None):
+    """Plain PyTorch K8, rounding where ``_fused_block_kernel`` and its
+    wrapper round: qkv and the heads as in K1 (without LN), the
+    out-projection summed over the heads in fp32 and rounded to ``h.dtype``,
+    and only then b_out, rounded to it, added in it."""
+    dt = h.dtype
+    attn = _mha_plain(h, w_qkv, b_qkv, num_heads, mask)
+    return _mm(attn, w_out.to(dt)).to(dt) + b_out.to(dt)
+
+
+def attention_block_xla(h, w_qkv, b_qkv, w_out, b_out, num_heads: int,
+                        mask=None):
+    """The eager math of K8, as the JAX package's ``_xla_attention_block``:
+    every product in h's dtype, the scores divided by √Dh and the mask added
+    in it, the softmax in fp32. K8's backward differentiates this."""
+    dt = h.dtype
+    b, n, d = h.shape
+    dh = d // num_heads
+    qkv = h @ w_qkv.to(dt) + b_qkv.to(dt)
     q, k, v = (
         t.reshape(b, n, num_heads, dh).transpose(1, 2)
         for t in qkv.split(d, dim=-1)
     )
-    q = q * (1.0 / dh**0.5)
-    scores = _mm(q, k.transpose(-1, -2))
+    root = torch.tensor(dh ** 0.5, dtype=torch.float32, device=h.device).to(dt)
+    scores = q @ k.transpose(-1, -2) / root
     if mask is not None:
-        scores = scores + mask.float()
-    scores = scores - scores.amax(-1, keepdim=True)
-    weights = scores.exp()
-    weights = weights / weights.sum(-1, keepdim=True)
-    out_h = _mm(weights.to(dt), v).to(dt)
-    attn = out_h.transpose(1, 2).reshape(b, n, d)
-    return (x32 + _mm(attn, w_out.to(dt)) + b_out.float()).to(dt)
+        scores = scores + mask.to(dt)
+    weights = torch.softmax(scores.float(), dim=-1).to(dt)
+    attn = (weights @ v).transpose(1, 2).reshape(b, n, d)
+    return attn @ w_out.to(dt) + b_out.to(dt)
 
 
 def ln_mlp_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
@@ -250,17 +323,51 @@ def _check_inputs(name, x, weights, vectors, mask=None):
                 f"{name}: {key} must be a float32 or bfloat16 tensor of shape "
                 f"({length},), got {v.dtype} {tuple(v.shape)}"
             )
-    if mask is not None:
-        n = x.shape[1]
-        if tuple(mask.shape) != (n, n) or not mask.is_contiguous():
-            raise ValueError(f"{name}: mask must be contiguous [N, N]")
-        if torch.is_grad_enabled() and mask.requires_grad:
-            raise RuntimeError(f"{name}: the kernels give no gradient for the mask")
-        tensors.append(mask)
+    _check_mask(name, mask, x.shape[1], tensors)
+    _check_devices(name, x, tensors)
+
+
+def _check_mask(name, mask, n, tensors):
+    """Refuses a mask that is not a contiguous [N, N] or that needs a
+    gradient; appends it to ``tensors``."""
+    if mask is None:
+        return
+    if tuple(mask.shape) != (n, n) or not mask.is_contiguous():
+        raise ValueError(f"{name}: mask must be contiguous [N, N]")
+    if torch.is_grad_enabled() and mask.requires_grad:
+        raise RuntimeError(f"{name}: the kernels give no gradient for the mask")
+    tensors.append(mask)
+
+
+def _check_devices(name, x, tensors):
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _check_attention(name, q, k, v, mask):
+    """K7's checks: q, k and v contiguous [B, H, N, Dh] of one dtype, Dh 32
+    or 64, 1 <= N <= 256, no input that needs a gradient."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or not q.is_contiguous():
+        raise ValueError(f"{name}: q must be a contiguous [B, H, N, Dh] tensor")
+    for key, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.shape != q.shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous {q.dtype} "
+                             f"tensor of q's shape {tuple(q.shape)}")
+    n, dh = q.shape[2], q.shape[3]
+    if dh not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"{name}: head width Dh must be 32 or 64, got {dh}")
+    if not 1 <= n <= MAX_TOKENS:
+        raise ValueError(f"{name}: needs 1 <= N <= {MAX_TOKENS}, got N={n}")
+    tensors = [q, k, v]
+    _check_mask(name, mask, n, tensors)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: no gradient, as the Pallas kernel has no "
+                           "JVP; call it under torch.no_grad()")
+    _check_devices(name, q, tensors)
 
 
 def _check_heads(name, x, w_qkv, w_out, num_heads):
@@ -298,6 +405,16 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
+
+
+def _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream):
+    """The attention core of K1 and K8: qkv [B·N, 3D] -> attn [B·N, D]."""
+    mask32 = None if mask is None else _f32(mask)
+    _build.check(
+        lib.cgt_attention(_ptr(qkv), _ptr(mask32), _ptr(attn), b, n,
+                          num_heads, d, _DTYPE_CODE[qkv.dtype], stream),
+        "attention",
+    )
 
 
 def _row_stats(lib, x2d, stream):
@@ -412,12 +529,7 @@ def _ln_attention_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     # the Pallas wrapper casts b_qkv to the working type, b_out to fp32
     _gemm(lib, x2d, w_qkv, _f32(b_qkv.to(x.dtype)), qkv, _EPI_QKV, stream,
           stats=stats, gamma=_f32(ln_scale), beta=_f32(ln_bias))
-    mask32 = None if mask is None else _f32(mask)
-    _build.check(
-        lib.cgt_attention(_ptr(qkv), _ptr(mask32), _ptr(attn), b, n,
-                          num_heads, d, _DTYPE_CODE[x.dtype], stream),
-        "attention",
-    )
+    _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream)
     _gemm(lib, attn, w_out, _f32(b_out), out.view(b * n, d), _EPI_RESID_ATTN,
           stream, resid=x2d)
     LAUNCHES["fused_ln_attention_block"] += 1
@@ -439,6 +551,54 @@ def _ln_mlp_forward(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     _gemm(lib, hid, w_proj, _f32(b_proj), out.view(b * n, d), _EPI_RESID_MLP,
           stream, resid=x2d)
     LAUNCHES["fused_ln_mlp"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, mask=None):
+    """K7: ``softmax(q·kᵀ/√Dh + mask)·v`` for contiguous q, k, v [B, H, N,
+    Dh] of one dtype (fp32 or bf16), Dh 32 or 64, N <= 256; mask an optional
+    additive [N, N], used in fp32. Returns [B, H, N, Dh] in q's dtype. Not
+    differentiable: raises on an input that needs a gradient."""
+    name = "flash_attention"
+    _check_attention(name, q, k, v, mask)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, mask)
+    b, h, n, dh = q.shape
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
+    mask32 = None if mask is None else _f32(mask)
+    _build.check(
+        lib.cgt_attention_bhnd(_ptr(q), _ptr(k), _ptr(v), _ptr(mask32),
+                               _ptr(out), b, n, h, dh, _DTYPE_CODE[q.dtype],
+                               stream),
+        "attention_bhnd",
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
+def _attention_block_forward(h, w_qkv, b_qkv, w_out, b_out, num_heads, mask):
+    if h.device.type == "cpu":
+        return attention_block_plain(h, w_qkv, b_qkv, w_out, b_out, num_heads,
+                                     mask)
+    b, n, d = h.shape
+    lib = _build.library()
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    h2d = h.view(b * n, d)
+    qkv = torch.empty(b * n, 3 * d, dtype=h.dtype, device=h.device)
+    attn = torch.empty(b * n, d, dtype=h.dtype, device=h.device)
+    out = torch.empty_like(h)
+    # the Pallas wrapper adds both biases in the working type
+    _gemm(lib, h2d, w_qkv, _f32(b_qkv.to(h.dtype)), qkv, _EPI_BIAS, stream)
+    _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream)
+    _gemm(lib, attn, w_out, _f32(b_out.to(h.dtype)), out.view(b * n, d),
+          _EPI_BIAS, stream)
+    LAUNCHES["fused_attention_block"] += 1
     return out
 
 
@@ -632,3 +792,46 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     if _tracked(*args):
         return _LnMlpFn.apply(*args)
     return _ln_mlp_forward(*args)
+
+
+class _AttentionBlockFn(torch.autograd.Function):
+    """K8 whose backward is the VJP of ``attention_block_xla``, recomputed
+    from the saved primal inputs (the JAX package's ``_fused_block_bwd``).
+    The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, w_qkv, b_qkv, w_out, b_out, num_heads, mask):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(h, w_qkv, b_qkv, w_out, b_out, mask)
+        return _attention_block_forward(h, w_qkv, b_qkv, w_out, b_out,
+                                        num_heads, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        *primals, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(primals, need)]
+        with torch.enable_grad():
+            out = attention_block_xla(*inputs, ctx.num_heads, mask)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in inputs if t.requires_grad], g))
+        return tuple(next(grads) if n else None for n in need) + (None, None)
+
+
+def fused_attention_block(h, w_qkv, b_qkv, w_out, b_out, num_heads: int,
+                          mask=None):
+    """K8: ``MHA(h·Wqkv + bqkv)·Wout + bout`` for an already normed h [B, N,
+    D] (the caller adds the residual); weights in right-multiply form (w_qkv
+    [D, 3D], w_out [D, D]) and in h's dtype (a weight of another dtype is
+    refused); biases are used in h's dtype; mask an optional additive
+    [N, N]. Returns [B, N, D] in h's dtype. Differentiable in every input but
+    the mask, through the eager math's VJP."""
+    d = h.shape[-1]
+    name = "fused_attention_block"
+    _check_inputs(name, h, {"w_qkv": w_qkv, "w_out": w_out},
+                  {"b_qkv": (b_qkv, 3 * d), "b_out": (b_out, d)}, mask)
+    _check_heads(name, h, w_qkv, w_out, num_heads)
+    args = (h, w_qkv, b_qkv, w_out, b_out)
+    if _tracked(*args):
+        return _AttentionBlockFn.apply(*args, num_heads, mask)
+    return _attention_block_forward(*args, num_heads, mask)

@@ -123,7 +123,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                      _t(p["w_fc"]), _t(p["b_fc"]), _t(p["w_proj"]),
                      _t(p["b_proj"]))
     assert set(tfa.LAUNCHES) == {"fused_ln_attention_block", "fused_ln_mlp",
-                                 "ln_attn_bwd", "ln_mlp_bwd"}
+                                 "ln_attn_bwd", "ln_mlp_bwd",
+                                 "flash_attention", "fused_attention_block"}
     assert not any(tfa.LAUNCHES.values())
 
 

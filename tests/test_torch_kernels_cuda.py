@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K4 against their plain PyTorch
+"""The hand-written CUDA kernels K1-K8 against their plain PyTorch
 versions, on the card. Every test here needs an NVIDIA GPU and nvcc and
 skips without them. The file imports neither jax nor the JAX package, so it
 runs on a machine with only PyTorch and the CUDA toolkit:
@@ -198,7 +198,8 @@ def test_each_call_on_the_card_counts_one_launch(device):
     p["x"].requires_grad_(True)
     _k2(p).sum().backward()
     assert fa.LAUNCHES == {"fused_ln_attention_block": 2, "fused_ln_mlp": 2,
-                           "ln_attn_bwd": 0, "ln_mlp_bwd": 1}
+                           "ln_attn_bwd": 0, "ln_mlp_bwd": 1,
+                           "flash_attention": 0, "fused_attention_block": 0}
 
 
 def test_grad_requiring_input_on_the_card_runs_the_backward_kernels(device):
@@ -409,3 +410,120 @@ def test_int8_tower_through_the_kernels_matches_the_plain_tower(device):
         ref = quantized.encode_image_q8(qvisual, arch, images.to(device))
     cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
     assert bool((cos >= 0.9999).all()), cos
+
+
+# ---------------------------------------------------------------------------
+# K7/K8: standalone attention on [B, H, N, Dh] and the qkv-attention-out block
+# without LN or residual (ops/flash_attention.py), held to the forward
+# tolerances above.
+# ---------------------------------------------------------------------------
+
+K7_SHAPES = [  # (batch, heads, tokens, head width, causal)
+    (2, 2, 197, 64, False),
+    (1, 8, 77, 64, True),
+    (2, 1, 50, 32, False),
+    (1, 1, 100, 64, False),
+    (3, 2, 1, 32, False),
+    (1, 3, 256, 64, True),
+    (2, 24, 197, 32, False),
+]
+K8_SHAPES = [  # (batch, tokens, width, heads, causal)
+    (3, 1, 128, 2, False),
+    (2, 65, 128, 2, True),
+    (2, 197, 768, 12, False),
+    (3, 77, 512, 8, True),
+    (1, 256, 256, 4, False),
+]
+
+
+def _qkv_heads(b, h, n, dh, dtype, device, causal=False, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, h, n, dh, generator=g).to(device, dtype)
+               for _ in range(3))
+    mask = (torch.triu(torch.full((n, n), float("-inf"), device=device), 1)
+            if causal else None)
+    return q, k, v, mask
+
+
+def _k8(p, heads, fn=fa.fused_attention_block):
+    return fn(p["x"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], heads,
+              p["mask"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", K7_SHAPES, ids=str)
+def test_k7_kernel_matches_plain(device, shape, dtype):
+    b, h, n, dh, causal = shape
+    args = _qkv_heads(b, h, n, dh, dtype, device, causal)
+    with torch.no_grad():
+        _assert_close(fa.flash_attention(*args), fa.attention_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", K8_SHAPES, ids=str)
+def test_k8_kernel_matches_plain(device, shape, dtype):
+    b, n, d, heads, causal = shape
+    p = _inputs(b, n, d, dtype, device, causal=causal)
+    with torch.no_grad():
+        _assert_close(_k8(p, heads), _k8(p, heads, fa.attention_block_plain),
+                      dtype)
+
+
+def test_k7_k8_count_one_launch_a_call_and_never_reach_the_plain_versions(device):
+    from unittest import mock
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    qkv = _qkv_heads(2, 2, 9, 32, torch.float32, device)
+    p = _inputs(2, 9, 128, torch.float32, device)
+    fa.reset_launch_counts()
+    with torch.no_grad(), \
+            mock.patch.object(fa, "attention_plain", refuse), \
+            mock.patch.object(fa, "attention_block_plain", refuse):
+        fa.flash_attention(*qkv)
+        fa.flash_attention(*qkv)
+        _k8(p, 2)
+    assert fa.LAUNCHES["flash_attention"] == 2
+    assert fa.LAUNCHES["fused_attention_block"] == 1
+    assert sum(fa.LAUNCHES.values()) == 3
+
+
+@pytest.mark.parametrize(
+    "shape, match",
+    [((1, 2, 9, 48), "32 or 64"), ((1, 2, 257, 64), "N <= 256")],
+    ids=["head-width", "too-many-tokens"],
+)
+def test_k7_refuses_shapes_the_kernel_does_not_take(device, shape, match):
+    q, k, v, _ = _qkv_heads(*shape, torch.float32, device)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention(q, k, v)
+
+
+def test_k7_refuses_a_tracked_input_on_the_card(device):
+    q, k, v, _ = _qkv_heads(1, 2, 9, 64, torch.float32, device)
+    q.requires_grad_(True)
+    fa.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_k8_backward_through_the_function_matches_autograd_of_the_eager_math(
+        device, dtype):
+    """The Function's forward launches K8 and its backward is the VJP of
+    ``attention_block_xla``: the gradients equal autograd of that math."""
+    p = _inputs(3, 77, 512, dtype, device, causal=True)
+    names = ("x", "w_qkv", "b_qkv", "w_out", "b_out")
+    dout = _dout(p)
+    fa.reset_launch_counts()
+    leaves = {k: p[k].detach().clone().requires_grad_(True) for k in names}
+    out = _k8({**p, **leaves}, 8)
+    got = torch.autograd.grad(out, list(leaves.values()), dout)
+    assert fa.LAUNCHES["fused_attention_block"] == 1
+    ref_leaves = [p[k].detach().clone().requires_grad_(True) for k in names]
+    ref_out = fa.attention_block_xla(*ref_leaves, 8, p["mask"])
+    ref = torch.autograd.grad(ref_out, ref_leaves, dout)
+    for name, out_g, ref_g in zip(names, got, ref):
+        _assert_grad_close(out_g, ref_g, name)
