@@ -28,7 +28,15 @@ exits non-zero before printing any result. Phases, each raising on failure:
    stated tolerance and CUDA-event times (median of 20 after warm-up) of the
    kernel (``kernel_ms``; ``ms`` in the JSON line carries the same number),
    the plain version and a library yardstick, beside the least time the
-   card could take (``bound_ms``);
+   card could take (``bound_ms``; fp32 operations at the faster of the
+   CUDA cores and 3xTF32 on the tensor cores). Then, untimed, a sweep of the
+   attention core that K1, K5, K7 and K8 share (K7 at N 1 to 256 across its
+   strip and chunk edges, Dh 32 and 64, both dtypes, no mask, causal and a
+   random finite mask; K1, K5 and K8 at N=17 and 256), printing the largest
+   error per group; and a ``torch.profiler`` trace of three calls each of
+   K1, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx
+   only, text B=256 N=24), printing the device time per call of each CUDA
+   kernel by name;
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
    ``encode_image_q8`` (bf16, the same images) and an ``encode_text`` (256
    prompts) with random weights, and the gradient of a CoOp-shaped loss
@@ -83,10 +91,11 @@ import time
 from unittest import mock
 
 # Published dense peaks (NVIDIA data sheet, H100 SXM at 700 W): FLOP/s for
-# fp32 on the CUDA cores and bf16 on the tensor cores, int8 tensor-core
-# operations/s, and memory bytes/s.
+# fp32 on the CUDA cores, TF32 and bf16 on the tensor cores, int8
+# tensor-core operations/s, and memory bytes/s.
 PEAKS = {
-    "H100": {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12, "bytes": 3.35e12},
+    "H100": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12,
+             "bytes": 3.35e12},
 }
 
 # kernel → (source, TPU kernel replaced)
@@ -189,6 +198,13 @@ K7_SHAPES = [
     ("text", 256, 8, 77, 64, True, ("fp32", "bf16")),
     ("vit-b16-dh32", 32, 24, 197, 32, False, ("bf16",)),
 ]
+# the attention core's sweep (phase 2, untimed): K7 at the edges of the
+# core's 16-row query strips and 16-key (bf16) or 8-key (fp32) chunks, at
+# the two towers' sequences and at the 256-token limit, under each mask of
+# _sweep_mask; K1, K5 and K8 at one strip plus a row and at the limit
+CORE_SWEEP_N = (1, 15, 16, 17, 50, 77, 197, 255, 256)
+CORE_SWEEP_MASKS = ("none", "causal", "random")
+CORE_BLOCK_N = (17, 256)
 # (name, batch, tokens, width, heads) of the K8 cells, fp32 and bf16
 K8_SHAPES = [
     ("vit-b16", 32, 197, 768, 12),
@@ -210,6 +226,16 @@ def card_peaks(name: str) -> dict:
         if key in name:
             return peaks
     raise RuntimeError(f"no published peaks for {name!r}: add them to PEAKS")
+
+
+def op_rate(peaks: dict, dtype_name: str) -> float:
+    """Operations/s of the operations bound. fp32: the faster of the CUDA
+    cores and the tensor cores at 3xTF32 (three TF32 products per fp32
+    product), the least time at fp32 accuracy on the card, whatever kernel
+    implements the cell."""
+    if dtype_name == "fp32":
+        return max(peaks["fp32"], peaks["tf32"] / 3)
+    return peaks[dtype_name]
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -308,6 +334,28 @@ def _block_inputs(b, n, d, causal, dtype, device, seed):
     return p
 
 
+def _block_args(kernel, p, heads):
+    """The positional arguments of a block kernel's wrapper, which its plain
+    version takes too, from ``_block_inputs`` (``_q8_block_inputs`` for K5
+    and K6)."""
+    if kernel == "fused_ln_attention_block":
+        return (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
+                p["w_out"], p["b_out"], heads, p["mask"])
+    if kernel == "fused_ln_mlp":
+        return (p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"],
+                p["w_proj"], p["b_proj"])
+    if kernel == "fused_attention_block":
+        return (p["x"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], heads,
+                p["mask"])
+    if kernel == "q8_ln_attention_block":
+        wq, wo = p["w_qkv"], p["w_out"]
+        return (p["x"], p["ln_scale"], p["ln_bias"], wq["q"], wq["scale"],
+                p["b_qkv"], wo["q"], wo["scale"], p["b_out"], heads, p["mask"])
+    wf, wp = p["w_fc"], p["w_proj"]  # q8_ln_mlp
+    return (p["x"], p["ln_scale"], p["ln_bias"], wf["q"], wf["scale"], p["b_fc"],
+            wp["q"], wp["scale"], p["b_proj"])
+
+
 def _k1_library(p, heads):
     """LN + qkv + attention + out-projection + residual from library calls."""
     import torch.nn.functional as F
@@ -378,7 +426,7 @@ def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
         ms = time_ms(run_kernel)
         plain_ms = time_ms(run_plain)
         library_ms = time_ms(run_library)
-    t_ops = flops / peaks[dtype_name] * 1e3
+    t_ops = flops / op_rate(peaks, dtype_name) * 1e3
     t_bytes = nbytes / peaks["bytes"] * 1e3
     cell = {
         "name": name,
@@ -419,23 +467,17 @@ def phase_kernels(device, peaks):
             p = _block_inputs(b, n, d, causal, dtype, device, seed=len(cells))
             for key in ("w_qkv", "w_out", "w_fc", "w_proj"):
                 p[key + "_t"] = p[key].t().contiguous()  # F.linear layout
+            k1 = _block_args("fused_ln_attention_block", p, heads)
+            k2 = _block_args("fused_ln_mlp", p, heads)
             runs = {
                 "fused_ln_attention_block": (
-                    lambda: fa.fused_ln_attention_block(
-                        p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"],
-                        p["b_qkv"], p["w_out"], p["b_out"], heads, p["mask"]),
-                    lambda: fa.ln_attention_block_plain(
-                        p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"],
-                        p["b_qkv"], p["w_out"], p["b_out"], heads, p["mask"]),
+                    lambda: fa.fused_ln_attention_block(*k1),
+                    lambda: fa.ln_attention_block_plain(*k1),
                     lambda: _k1_library(p, heads),
                 ),
                 "fused_ln_mlp": (
-                    lambda: fa.fused_ln_mlp(
-                        p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"],
-                        p["b_fc"], p["w_proj"], p["b_proj"]),
-                    lambda: fa.ln_mlp_plain(
-                        p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"],
-                        p["b_fc"], p["w_proj"], p["b_proj"]),
+                    lambda: fa.fused_ln_mlp(*k2),
+                    lambda: fa.ln_mlp_plain(*k2),
                     lambda: _k2_library(p),
                 ),
             }
@@ -446,7 +488,7 @@ def phase_kernels(device, peaks):
                     kernel, f"{kernel}[{shape_name},B={b},{dtype_name}]",
                     (b, n, d, heads), dtype_name, kernel_runs, flops, nbytes,
                     peaks))
-            del p, runs
+            del p, k1, k2, runs
     return cells
 
 
@@ -497,7 +539,7 @@ def phase_attention_kernels(device, peaks):
             p = _block_inputs(b, n, d, False, dtype, device, seed=500 + len(cells))
             for key in ("w_qkv", "w_out"):
                 p[key + "_t"] = p[key].t().contiguous()
-            args = (p["x"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], heads)
+            args = _block_args("fused_attention_block", p, heads)
             runs = (lambda: fa.fused_attention_block(*args),
                     lambda: fa.attention_block_plain(*args),
                     lambda: _k8_library(p, heads))
@@ -510,6 +552,158 @@ def phase_attention_kernels(device, peaks):
             del p, args, runs
         torch.cuda.empty_cache()
     return cells
+
+
+def _sweep_mask(kind, n, device, g):
+    """No mask, a causal mask or a random finite additive fp32 mask."""
+    import torch
+
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return torch.triu(torch.full((n, n), float("-inf")), 1).to(device)
+    return (2 * torch.randn(n, n, generator=g)).to(device)
+
+
+def phase_core_sweep(device, batch=2, heads=3, width=128, block_heads=2):
+    """The attention core shared by K1, K5, K7 and K8 against the plain
+    versions, untimed: K7 at every CORE_SWEEP_N, both head widths and dtypes
+    and the three masks of ``_sweep_mask``; K1, K5 and K8 at CORE_BLOCK_N,
+    without a mask and causal, at a small width. Prints the largest error of
+    each group and raises past the tolerances (TOLERANCES; Q8_TOL for K5)."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    def check(group, dtype_name, what, out, ref):
+        torch.cuda.synchronize()
+        if tuple(out.shape) != tuple(ref.shape) or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"core sweep {what}: bad output {tuple(out.shape)}")
+        if group.startswith("K5"):
+            max_abs, outside, mean_rel, ok = _q8_compare(out, ref)
+            errs = (max_abs, outside, mean_rel)
+        else:
+            max_abs, max_rel, ok = compare(out, ref, *TOLERANCES[dtype_name])
+            errs = (max_abs, max_rel)
+        if not ok:
+            raise RuntimeError(f"core sweep {what}: kernel disagrees with its "
+                               f"plain version past the tolerance {errs}")
+        if errs > worst.get(group, ((-1.0,), ""))[0]:
+            worst[group] = (errs, what)
+
+    worst = {}  # group -> (errors, where)
+    with torch.no_grad():
+        for dtype_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for dh in (32, 64):
+                for n in CORE_SWEEP_N:
+                    for kind in CORE_SWEEP_MASKS:
+                        g = torch.Generator().manual_seed(700 + n)
+                        q, k, v = (torch.randn(batch, heads, n, dh, generator=g)
+                                   .to(device, dtype) for _ in range(3))
+                        mask = _sweep_mask(kind, n, device, g)
+                        check(f"K7 {dtype_name} Dh={dh} mask={kind}", dtype_name,
+                              f"N={n}", fa.flash_attention(q, k, v, mask),
+                              fa.attention_plain(q, k, v, mask))
+            for n in CORE_BLOCK_N:
+                for causal in (False, True):
+                    what = f"N={n}{' causal' if causal else ''}"
+                    p = _block_inputs(batch, n, width, causal, dtype, device,
+                                      seed=800 + n)
+                    k1 = _block_args("fused_ln_attention_block", p, block_heads)
+                    check(f"K1 {dtype_name}", dtype_name, what,
+                          fa.fused_ln_attention_block(*k1),
+                          fa.ln_attention_block_plain(*k1))
+                    k8 = _block_args("fused_attention_block", p, block_heads)
+                    check(f"K8 {dtype_name}", dtype_name, what,
+                          fa.fused_attention_block(*k8),
+                          fa.attention_block_plain(*k8))
+                    p = _q8_block_inputs(batch, n, width, dtype_name, device,
+                                         seed=800 + n, causal=causal)
+                    k5 = _block_args("q8_ln_attention_block", p, block_heads)
+                    check(f"K5 {dtype_name}", dtype_name, what,
+                          ib.q8_ln_attention_block(*k5),
+                          ib.q8_ln_attention_block_plain(*k5))
+    for group, (errs, what) in worst.items():
+        kind = ("max_abs_err {:.3e} share outside tol {:.2e} mean_rel_err {:.3e}"
+                if group.startswith("K5") else "max_abs_err {:.3e} max_rel_err {:.3e}")
+        log(f"[core sweep] {group}: largest error at {what}: " + kind.format(*errs))
+    log(f"[core sweep] {len(worst)} groups within tolerance")
+
+
+def _short_kernel_name(name: str) -> str:
+    """A CUDA kernel's demangled name without its namespaces, return type and
+    argument list."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    return name if len(name) <= 90 else name[:87] + "..."
+
+
+def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
+    """``torch.profiler`` (CUDA activity) over ``calls`` calls each of K1, K5
+    and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx only) at
+    the trimmed text tower's CoCoOp chunk, after a warm-up call: prints the
+    device time of each CUDA kernel by name, per call, with the number of
+    launches the trace holds of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    def profiled(label, run, shape=f"ViT-B/16 B={b}"):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        times, counts = {}, {}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            key = _short_kernel_name(evt.key)
+            times[key] = times.get(key, 0.0) + us / calls
+            counts[key] = counts.get(key, 0) + evt.count
+        total = sum(times.values())
+        if not total:
+            raise RuntimeError(f"profile {label}: the trace holds no device time")
+        parts = "; ".join(f"{key} {us / 1e3:.4f} ms ({100 * us / total:.1f}%, "
+                          f"{counts[key]} launches)"
+                          for key, us in sorted(times.items(), key=lambda kv: -kv[1]))
+        log(f"[profile] {label} {shape}: device time per call "
+            f"{total / 1e3:.4f} ms over {calls} calls: {parts}")
+
+    with torch.no_grad():
+        for dtype_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            p = _block_inputs(b, n, d, False, dtype, device, seed=900)
+            args = _block_args("fused_ln_attention_block", p, heads)
+            profiled(f"K1 {dtype_name}", lambda: fa.fused_ln_attention_block(*args))
+            if dtype_name == "bf16":
+                args = _block_args("fused_attention_block", p, heads)
+                profiled("K8 bf16", lambda: fa.fused_attention_block(*args))
+                del p, args
+                p = _q8_block_inputs(b, n, d, dtype_name, device, seed=900)
+                args = _block_args("q8_ln_attention_block", p, heads)
+                profiled("K5 bf16", lambda: ib.q8_ln_attention_block(*args))
+            del p, args
+            torch.cuda.empty_cache()
+    # K3 as a CoCoOp chunk launches it (dx only), for its attention backward
+    p = _block_inputs(256, 24, 512, True, torch.float32, device, seed=901)
+    dout = torch.randn(256, 24, 512, generator=torch.Generator().manual_seed(902))
+    dout = dout.to(device)
+    profiled("K3 fp32 dx", lambda: fa.ln_attn_bwd(
+        p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"], p["w_out"],
+        p["mask"], 8, dout, param_grads=False), shape="text B=256 N=24")
 
 
 def _bwd_cost(kernel, b, n, d, itemsize, param_grads):
@@ -609,7 +803,7 @@ def phase_bwd_kernels(device, peaks):
                 library_ms = time_ms(_bwd_library(kernel, p, heads, param_grads))
                 flops, nbytes = _bwd_cost(kernel, b, n, d, p["x"].element_size(),
                                           param_grads)
-                t_ops = flops / peaks["fp32"] * 1e3
+                t_ops = flops / op_rate(peaks, "fp32") * 1e3
                 t_bytes = nbytes / peaks["bytes"] * 1e3
                 grads = "all" if param_grads else "dx"
                 cell = {
@@ -645,7 +839,7 @@ def phase_bwd_kernels(device, peaks):
     return cells
 
 
-def _q8_block_inputs(b, n, d, dtype_name, device, seed):
+def _q8_block_inputs(b, n, d, dtype_name, device, seed, causal=False):
     """K5/K6 inputs: K1/K2's, with the four products quantized per output
     channel (``quantize_weight``) and, for the library yardstick, each int8
     weight also laid out column-major as ``torch._int_mm`` takes it."""
@@ -653,7 +847,7 @@ def _q8_block_inputs(b, n, d, dtype_name, device, seed):
 
     from clip_gp_tpu_torch.models.quantized import quantize_weight
 
-    p = _block_inputs(b, n, d, False, torch.float32, device, seed)
+    p = _block_inputs(b, n, d, causal, torch.float32, device, seed)
     p["x"] = p["x"].to({"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name])
     for key in ("w_qkv", "w_fc", "w_proj"):
         p[key] = quantize_weight(p[key])
@@ -710,6 +904,17 @@ def _k6_library(p):
     return (x32 + out).to(x.dtype).view(b, n, d)
 
 
+def _q8_compare(out, ref):
+    """(max abs error, share of elements outside Q8_TOL's elementwise
+    tolerance, mean |error| over mean |ref|, within Q8_TOL)."""
+    diff = (out.float() - ref.float()).abs()
+    limit = Q8_TOL["atol"] + Q8_TOL["rtol"] * ref.float().abs()
+    outside = (diff > limit).float().mean().item()
+    mean_rel = (diff.mean() / ref.float().abs().mean()).item()
+    ok = outside <= 1 - Q8_TOL["share"] and mean_rel <= Q8_TOL["mean"]
+    return diff.max().item(), outside, mean_rel, ok
+
+
 def _q8_cost(kernel, b, n, d, itemsize, peaks):
     """(seconds of operations, bytes) of one K5/K6 call: int8 products at the
     int8 tensor peak, K5's attention core at the working type's peak; x read
@@ -718,7 +923,7 @@ def _q8_cost(kernel, b, n, d, itemsize, peaks):
     t = b * n
     act = 2 * t * d * itemsize
     if kernel == "q8_ln_attention_block":
-        attn_peak = peaks["bf16" if itemsize == 2 else "fp32"]
+        attn_peak = op_rate(peaks, "bf16" if itemsize == 2 else "fp32")
         seconds = 8 * t * d * d / peaks["int8"] + 4 * b * n * n * d / attn_peak
         return seconds, act + 4 * d * d + (3 * d + 3 * d + d + d + 2 * d) * 4
     seconds = 16 * t * d * d / peaks["int8"]
@@ -735,11 +940,8 @@ def phase_q8_kernels(device, peaks):
     cells = []
     for shape_name, b, n, d, heads, dtype_name in Q8_SHAPES:
         p = _q8_block_inputs(b, n, d, dtype_name, device, seed=200 + len(cells))
-        wq, wo, wf, wp = p["w_qkv"], p["w_out"], p["w_fc"], p["w_proj"]
-        k5 = (p["x"], p["ln_scale"], p["ln_bias"], wq["q"], wq["scale"],
-              p["b_qkv"], wo["q"], wo["scale"], p["b_out"], heads)
-        k6 = (p["x"], p["ln_scale"], p["ln_bias"], wf["q"], wf["scale"],
-              p["b_fc"], wp["q"], wp["scale"], p["b_proj"])
+        k5 = _block_args("q8_ln_attention_block", p, heads)
+        k6 = _block_args("q8_ln_mlp", p, heads)
         runs = {
             "q8_ln_attention_block": (
                 lambda: ib.q8_ln_attention_block(*k5),
@@ -761,14 +963,10 @@ def phase_q8_kernels(device, peaks):
                 if not bool(torch.isfinite(out).all()):
                     raise RuntimeError(f"{kernel} {shape_name} {dtype_name}: "
                                        "non-finite output")
-                diff = (out.float() - ref.float()).abs()
-                limit = Q8_TOL["atol"] + Q8_TOL["rtol"] * ref.float().abs()
-                outside = (diff > limit).float().mean().item()
-                mean_rel = (diff.mean() / ref.float().abs().mean()).item()
+                max_abs, outside, mean_rel, ok = _q8_compare(out, ref)
                 lib_rel = ((lib_out.float() - ref.float()).abs().mean()
                            / ref.float().abs().mean()).item()
-                max_abs = diff.max().item()
-                del out, ref, lib_out, diff, limit
+                del out, ref, lib_out
                 ms = time_ms(run_kernel)
                 plain_ms = time_ms(run_plain)
                 library_ms = time_ms(run_library)
@@ -803,7 +1001,7 @@ def phase_q8_kernels(device, peaks):
                 f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
                 f"{cell['bound_ms']:.4f} ({cell['bound_by']}, "
                 f"{100 * cell['bound_share']:.1f}% of the kernel's time)")
-            if outside > 1 - Q8_TOL["share"] or mean_rel > Q8_TOL["mean"]:
+            if not ok:
                 raise RuntimeError(f"{cell['name']}: kernel disagrees with "
                                    "its plain version past the tolerance")
             cells.append(cell)
@@ -1484,6 +1682,8 @@ def main() -> int:
     cells = (phase_kernels(device, peaks) + phase_bwd_kernels(device, peaks)
              + phase_q8_kernels(device, peaks)
              + phase_attention_kernels(device, peaks))
+    phase_core_sweep(device)
+    phase_profile(device)
     phase_towers(device)
     by_path = {"adapter_gp": phase_trainer(), "coop": phase_coop(),
                "cocoop": phase_cocoop(), **phase_serving(device),

@@ -1,4 +1,5 @@
-// Multi-head attention cores, one kernel for three callers:
+// Multi-head attention cores on the tensor cores, one kernel for four
+// callers:
 // - K1's: the per-head loop of _qkv_heads_accumulate inside
 //   _fused_ln_block_kernel (clip_gp_tpu/ops/flash_attention.py), also the
 //   core of K8 (_fused_block_kernel, the same loop without LN): q|k|v read at
@@ -17,44 +18,76 @@
 // array's type; exactly 0.125 at Dh = 64), scores q.k accumulate in fp32,
 // the optional additive fp32 mask [N, N] is added, softmax runs in fp32
 // (max-subtracted exp, divided by the row sum), the probabilities round to T,
-// p.v accumulates in fp32 and rounds to T.
+// p.v accumulates in fp32 and rounds to T. The softmax is exact, not online:
+// a warp holds a 16-row strip of scores over all keys in registers (at most
+// 128 fp32 values a thread at N = 256), so the probabilities round where the
+// Pallas kernels round them.
 //
 // The same kernel with QUANT is the attention core of K5
 // (_q8_ln_block_kernel, clip_gp_tpu/ops/int8_block.py): there each head's
 // fp32 output is not rounded to T but quantized per (row, head), as that
-// kernel's quantize_rows(out_h) does: the warp that holds a query row's 64
-// outputs takes their absmax, scale = max(absmax / 127, 1e-12), and writes
-// int8 codes clip(rint(o / scale), ±127) at [B, N, D] plus the scale at
-// [B, N, H], for the int8 out-projection of int8_block.cu.
+// kernel's quantize_rows(out_h) does: scale = max(absmax / 127, 1e-12) over
+// the row's 64 outputs, int8 codes clip(rint(o / scale), ±127) at [B, N, D]
+// plus the scale at [B, N, H], for the int8 out-projection of int8_block.cu.
 //
-// One block per (query tile of 64 rows, head, batch element): the head's K
-// and V for the whole sequence sit in shared memory as fp32 (about 100 KB at
-// N = 197, Dh = 64), loaded with 16-byte vector loads; each warp walks 8
-// query rows, each lane scores up to 8 keys, reading 4 values of a key row
-// per shared-memory load (one load feeds 4 FMAs, taken in the order of d, so
-// the sums are those of a scalar loop), and the [N, N] scores never reach
-// device memory. Keys are exactly the N real tokens (no padding, which the
-// Pallas kernels mask at -inf), so no row is ever masked throughout by the
-// kernel itself. The 16-byte loads need 16-byte aligned operands and row,
-// head and batch strides that are multiples of 16 bytes, which both layouts
-// give at head widths 32 and 64 (the wrappers check the base pointers).
-//
-// What bounds it on an H100: for K7 in bf16, bytes (4*B*H*N^2*Dh FLOPs for
+// What bounds it on an H100: for bf16, bytes (4*B*H*N^2*Dh FLOPs for
 // 4*B*H*N*Dh values moved, about 100 FLOPs a byte at N = 197, under the
-// tensor cores' ridge of about 295); in fp32, operations on the CUDA cores.
-// Inside K1/K8 the core is about a tenth of the block's work. This first
-// version runs on the CUDA cores in fp32 for both working types and reads
-// each head's K and V once per query tile; moving the two products onto the
-// tensor cores is later work.
+// tensor cores' ridge of about 295), so mma.sync can reach the bound and
+// neither wgmma nor TMA is needed; for fp32, operations at the 3xTF32 rate
+// (a third of the 495 TFLOP/s TF32 peak, above the 67 TFLOP/s of the CUDA
+// cores), the least time at fp32 accuracy on this card.
+//
+// The design: one block of four warps per (batch element, head). The head's
+// K and V are read from device memory once, by 16-byte cp.async (K first, so
+// the first strip's scores overlap V's copy), and stay in shared memory in
+// T: bf16 rows of Dh + 8 elements, so the 8 rows an ldmatrix phase reads
+// fall in 8 distinct 16-byte bank groups; fp32 K rows of Dh + 8 and V rows
+// of Dh + 4 floats, for the conflict-free float2 and scalar reads below.
+// The warps walk the ceil(N/16) query strips of 16 rows, so at most 15
+// padded query rows per head (11 at N = 197). Per strip:
+// - bf16: S = Q.K^T by mma.sync.m16n8k16 (bf16 in, fp32 accumulators over
+//   the bucket's n-tiles of 8 keys), Q's fragments loaded from device memory
+//   and scaled in registers, K's by ldmatrix; the mask read at each fragment
+//   element's (row, key), keys past N at -inf; row max and sum by shuffles
+//   within each quad; P rounded to bf16 and repacked from the accumulator
+//   layout into A fragments in registers (the m16n8k16 C layout is the next
+//   product's A layout); O = P.V by m16n8k16 with V's fragments by
+//   ldmatrix.trans.
+// - fp32: the same structure on mma.sync.m16n8k8 TF32 as 3xTF32: every
+//   operand splits into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and
+//   each product is lo.hi + hi.lo + hi.hi with fp32 accumulation (one pass
+//   of TF32 errs by ~1e-3, past the fp32 tolerance). Both products permute
+//   their k index the same way on A and B (k = t reads element 2t, k = t + 4
+//   element 2t + 1), so Q and K fragments are float2 reads and P's A
+//   fragment is the score accumulator as it stands, with no shuffle.
+// - the epilogue rounds O (fp32: float2 stores straight from the
+//   fragments) or quantizes it with the absmax over the quad's lanes; bf16
+//   and int8 outputs are staged through a per-warp shared-memory tile so
+//   their stores are 16-byte and coalesced.
+// What limits this structure is the size of its code, not the tensor cores:
+// the score strip lives in registers, so every loop over it is unrolled and
+// a kernel runs to 50-70 KB of SASS, streamed through the instruction caches
+// once per strip. So the kernel spends as few instructions per score as it
+// can: the loops over key tiles have compile-time bounds (a template bucket
+// NT of 8-key tiles, 4, 10, 16, 25 or 26, 32, with K and V zero-padded to
+// it) and no per-tile branch, and the division by the row sum is the
+// Markstein sequence q = x.r, q += (x - q.s).r with r the correctly rounded
+// reciprocal, IEEE division's result at a third of its instructions.
+// Occupancy (per SM: 228 KB of shared memory, 64K registers): at ViT-B/16's
+// N = 197 a bf16 block (NT 26) holds 60 KB of K and V plus 9 KB of staging
+// and about 170 registers a thread, so three fit an SM; an fp32 block (NT
+// 25) holds 109 KB, so two fit. Registers are printed by the build (-Xptxas
+// -v). No atomics: every output element is summed by one thread in a fixed
+// order, so the output repeats bit for bit.
 #include "common.cuh"
 
 using namespace cgt;
 
 namespace {
 
-constexpr int QT = 64;        // query rows per block
-constexpr int WARPS = 8;      // 256 threads
-constexpr int MAX_N = 256;    // 8 keys per lane
+constexpr int WARPS = 4;      // 128 threads
+constexpr int STRIP = 16;     // query rows of a warp's strip (the mma's m)
+constexpr int MAX_N = 256;
 
 // element offsets of one operand: batch element, head, token row (a row
 // offset within one head stays far below 2^31)
@@ -63,160 +96,421 @@ struct Strides {
   int row;
 };
 
-// K rows padded to DH + 4 floats: 16-byte aligned for float4 reads, and the
-// 8 lanes of each quarter-warp phase of a 16-byte read hit distinct banks
-template <int DH>
-constexpr int kKsLd = DH + 4;
+// shared-memory layout of one block, in elements of T unless named bytes:
+// K and V of NT tiles of 8 keys (the bucket: rows past N are zero), then the
+// warps' output staging
+template <typename T, int DH, int NT, bool QUANT>
+struct Layout {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static_assert(!kBf16 || NT % 2 == 0, "bf16 keys come in chunks of 16");
+  static constexpr int ROWS = NT * 8;
+  static constexpr int K_LD = DH + 8;
+  static constexpr int V_LD = kBf16 ? DH + 8 : DH + 4;
+  // per-warp output staging of bf16 or int8 rows: 16 rows of STAGE_LD bytes
+  static constexpr bool kStage = kBf16 || QUANT;
+  static constexpr int STAGE_LD = QUANT ? DH + 16 : (DH + 8) * 2;
+  static constexpr size_t bytes = sizeof(T) * (size_t)ROWS * (K_LD + V_LD) +
+                                  (kStage ? WARPS * STRIP * STAGE_LD : 0);
+};
 
-template <int DH>
-size_t smem_bytes(int n) {
-  return sizeof(float) * ((size_t)n * kKsLd<DH> + (size_t)n * DH + QT * DH +
-                          WARPS * MAX_N);
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// the 16 / sizeof(T) elements at a 16-byte aligned src, as fp32
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const T* e = reinterpret_cast<const T*>(&raw);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a.b, a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 fp32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b, a 16x8 tf32 (row), b 8x8 tf32 (col), d 16x8 fp32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (x - hi is exact in fp32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// 3xTF32: d += a.b at about fp32 accuracy, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// two fp32 values rounded to bf16, packed low then high
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---------------------------------------------------------------------------
+// the block's pieces
+// ---------------------------------------------------------------------------
+
+// rows [0, n) of a head's operand into shared-memory rows of ld elements by
+// 16-byte cp.async; rows [n, rows) zeroed
+template <typename T, int DH>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          int row_stride, int n, int rows) {
+  constexpr int VEC = 16 / sizeof(T), CH = DH / VEC;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+    const int j = idx / CH, c = idx % CH * VEC;
+    T* d = dst + j * ld + c;
+    if (j < n)
+      cp_async16(d, src + (long long)j * row_stride + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// S = (q scaled, rounded to T).K^T for the strip at row r0, the mask added,
+// keys >= N at -inf, then the softmax: s holds each row's probabilities in
+// fp32 (not yet rounded to T). Fragment element e of n-tile nt is row
+// r0 + g + 8 * (e >> 1), key 8 * nt + 2t + (e & 1), g = lane / 4, t = lane % 4.
+template <typename T, int DH, int NT, bool QUANT>
+__device__ __forceinline__ void scores_softmax(float (&s)[NT][4], const T* Ks,
+                                               const T* qb, int q_row,
+                                               const float* mask, int N, int r0,
+                                               float scale, int lane) {
+  using L = Layout<T, DH, NT, QUANT>;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = r0 + g, row1 = r0 + g + 8;
 #pragma unroll
-  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) dst[i] = to_f32(e[i]);
-}
-
-// n floats (a multiple of 4) to a 16-byte aligned dst
-template <int n>
-__device__ __forceinline__ void store_f32(float* dst, const float* src) {
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-  for (int i = 0; i < n; i += 4)
-    *reinterpret_cast<float4*>(dst + i) =
-        make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+
+  if constexpr (L::kBf16) {
+    // ldmatrix.x4 of a 16-key chunk: lane l gives the address of row
+    // (l & 7) + 8 * (l >> 4), column 8 * ((l >> 3) & 1): registers 0, 1 are
+    // n-tile 2c's b0, b1 and 2, 3 n-tile 2c + 1's
+    const int m = lane >> 3, i = lane & 7;
+    const T* kfrag = Ks + (i + (m >> 1) * 8) * L::K_LD + (m & 1) * 8;
+    auto q2 = [&](int row, int d) -> uint32_t {  // q[row, d:d+2] scaled, packed
+      if (row >= N) return 0u;
+      const __nv_bfloat162 v =
+          *reinterpret_cast<const __nv_bfloat162*>(qb + (long long)row * q_row + d);
+      return pack_bf16(__bfloat162float(v.x) * scale, __bfloat162float(v.y) * scale);
+    };
+#pragma unroll 1
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int d = kk * 16 + 2 * t;
+      const uint32_t a[4] = {q2(row0, d), q2(row1, d), q2(row0, d + 8),
+                             q2(row1, d + 8)};
+#pragma unroll
+      for (int c = 0; c < NT / 2; ++c) {
+        uint32_t r[4];
+        ldmatrix_x4(r, kfrag + c * 16 * L::K_LD + kk * 16);
+        mma_bf16(s[2 * c], a, r[0], r[1]);
+        mma_bf16(s[2 * c + 1], a, r[2], r[3]);
+      }
+    }
+  } else {
+    // k = t reads column d + 2t, k = t + 4 column d + 2t + 1, on A and B
+    auto q2 = [&](int row, int d) -> float2 {
+      if (row >= N) return make_float2(0.f, 0.f);
+      const float2 v =
+          *reinterpret_cast<const float2*>(qb + (long long)row * q_row + d);
+      return make_float2(v.x * scale, v.y * scale);
+    };
+#pragma unroll 1
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      const int d = kk * 8 + 2 * t;
+      const float2 qa = q2(row0, d), qc = q2(row1, d);
+      uint32_t ah[4], al[4];
+      split_tf32(qa.x, ah[0], al[0]);
+      split_tf32(qc.x, ah[1], al[1]);
+      split_tf32(qa.y, ah[2], al[2]);
+      split_tf32(qc.y, ah[3], al[3]);
+      const float* kr = reinterpret_cast<const float*>(Ks) + g * L::K_LD + d;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 kv = *reinterpret_cast<const float2*>(kr + nt * 8 * L::K_LD);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kv.x, bh0, bl0);
+        split_tf32(kv.y, bh1, bl1);
+        mma_3xtf32(s[nt], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+
+  if (mask != nullptr) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row0 : row1, key = nt * 8 + 2 * t + (e & 1);
+        if (row < N && key < N) s[nt][e] += mask[(size_t)row * N + key];
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (nt * 8 + 2 * t + (e & 1) >= N) s[nt][e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = expf(s[nt][e] - mx[e >> 1]);
+      sum[e >> 1] += s[nt][e];
+    }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+  // s / sum, correctly rounded: q = s.r, then one FMA residual correction
+  // with r the correctly rounded reciprocal (Markstein)
+  const float rc[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float q = s[nt][e] * rc[e >> 1];
+      s[nt][e] = fmaf(fmaf(-q, sum[e >> 1], s[nt][e]), rc[e >> 1], q);
+    }
 }
 
-template <typename T, int DH, bool QUANT>
+// O = P.V for the strip whose probabilities s holds; o[dt] is the n-tile of
+// columns [8 dt, 8 dt + 8), in the accumulator layout of scores_softmax
+template <typename T, int DH, int NT, bool QUANT>
+__device__ __forceinline__ void pv(float (&o)[DH / 8][4], const float (&s)[NT][4],
+                                   const T* Vs, int lane) {
+  using L = Layout<T, DH, NT, QUANT>;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+  if constexpr (L::kBf16) {
+    // ldmatrix.x4.trans of a 16-key chunk: lane l gives the address of key
+    // row (l & 7) + 8 * ((l >> 3) & 1), column 8 * (l >> 4): registers 0, 1
+    // are d-tile 2p's b0, b1 and 2, 3 d-tile 2p + 1's
+    const int m = lane >> 3, i = lane & 7;
+    const T* vfrag = Vs + (i + (m & 1) * 8) * L::V_LD + (m >> 1) * 8;
+#pragma unroll
+    for (int c = 0; c < NT / 2; ++c) {
+      // P rounded to bf16: the accumulators of n-tiles 2c, 2c + 1 are the
+      // A fragment of keys [16c, 16c + 16)
+      const uint32_t a[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
+                             pack_bf16(s[2 * c][2], s[2 * c][3]),
+                             pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
+                             pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
+#pragma unroll
+      for (int p = 0; p < DH / 16; ++p) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vfrag + c * 16 * L::V_LD + p * 16);
+        mma_bf16(o[2 * p], a, r[0], r[1]);
+        mma_bf16(o[2 * p + 1], a, r[2], r[3]);
+      }
+    }
+  } else {
+    // k = t is key 8nt + 2t, k = t + 4 key 8nt + 2t + 1, so n-tile nt's
+    // accumulators (c0, c2, c1, c3) are the A fragment as they stand
+    const float* vr = reinterpret_cast<const float*>(Vs) + 2 * t * L::V_LD + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[nt][0], ah[0], al[0]);
+      split_tf32(s[nt][2], ah[1], al[1]);
+      split_tf32(s[nt][1], ah[2], al[2]);
+      split_tf32(s[nt][3], ah[3], al[3]);
+      const float* v0 = vr + nt * 8 * L::V_LD;
+#pragma unroll
+      for (int dt = 0; dt < DH / 8; ++dt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(v0[dt * 8], bh0, bl0);
+        split_tf32(v0[L::V_LD + dt * 8], bh1, bl1);
+        mma_3xtf32(o[dt], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// the warp's staged rows [r0, r0 + 16) of ROW_BYTES each to device memory,
+// 16 bytes a store; rows >= N are dropped
+template <int ROW_BYTES>
+__device__ __forceinline__ void store_staged(const unsigned char* st, int ld,
+                                             unsigned char* dst,
+                                             long long row_stride_bytes,
+                                             int r0, int N, int lane) {
+  constexpr int CH = ROW_BYTES / 16;
+  __syncwarp();
+  for (int idx = lane; idx < STRIP * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH * 16;
+    if (r0 + r < N)
+      *reinterpret_cast<uint4*>(dst + (r0 + r) * row_stride_bytes + c) =
+          *reinterpret_cast<const uint4*>(st + r * ld + c);
+  }
+  __syncwarp();  // the tile is rewritten by the warp's next strip
+}
+
+template <typename T, int DH, int NT, bool QUANT>
 __global__ void __launch_bounds__(WARPS * 32)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
                      T* __restrict__ out, int8_t* __restrict__ q_out,
-                     float* __restrict__ q_scale, int N, Strides in,
+                     float* __restrict__ q_scale, int N, int H, Strides in,
                      Strides os) {
-  constexpr int KS_LD = kKsLd<DH>;
-  constexpr int OUTS = DH / 32;               // outputs per lane
-  constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
-  constexpr int CHUNKS = DH / VEC;            // 16-byte loads per row
-  extern __shared__ float smem[];
-  float* Ks = smem;                    // [N][KS_LD]
-  float* Vs = Ks + (size_t)N * KS_LD;  // [N][DH]
-  float* Qs = Vs + (size_t)N * DH;     // [QT][DH]
-  float* Ps = Qs + QT * DH;            // [WARPS][MAX_N]
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  using L = Layout<T, DH, NT, QUANT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + L::ROWS * L::K_LD;
+  unsigned char* stage = reinterpret_cast<unsigned char*>(Vs + L::ROWS * L::V_LD);
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
   const long long in_off = b * in.batch + h * in.head;
   const T* qb = q + in_off;
-  const T* kb = k + in_off;
-  const T* vb = v + in_off;
-  // 1/sqrt(Dh) in the working type
-  const float scale = round_to<T>((float)(1.0 / sqrt((double)DH)));
-
-  for (int idx = threadIdx.x; idx < N * CHUNKS; idx += blockDim.x) {
-    const int j = idx / CHUNKS, d = idx % CHUNKS * VEC;
-    float kv[VEC], vv[VEC];
-    load16(kb + j * in.row + d, kv);
-    load16(vb + j * in.row + d, vv);
-    store_f32<VEC>(Ks + j * KS_LD + d, kv);
-    store_f32<VEC>(Vs + j * DH + d, vv);
-  }
-  for (int idx = threadIdx.x; idx < QT * CHUNKS; idx += blockDim.x) {
-    const int i = idx / CHUNKS, d = idx % CHUNKS * VEC, qi = q0 + i;
-    float qv[VEC];
-    if (qi < N) {
-      load16(qb + qi * in.row + d, qv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[e] = round_to<T>(qv[e] * scale);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[e] = 0.f;
-    }
-    store_f32<VEC>(Qs + i * DH + d, qv);
-  }
-  __syncthreads();
+  load_rows<T, DH>(Ks, L::K_LD, k + in_off, in.row, N, L::ROWS);
+  cp_async_commit();
+  load_rows<T, DH>(Vs, L::V_LD, v + in_off, in.row, N, L::ROWS);
+  cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* P = Ps + warp * MAX_N;
-  const int slots = (N + 31) / 32;  // key slots per lane, uniform in the warp
-  for (int i = warp; i < QT; i += WARPS) {
-    const int qi = q0 + i;
-    if (qi >= N) break;  // uniform across the warp
-    const float* qr = Qs + i * DH;
-    float s[MAX_N / 32];
+  const int g = lane >> 2, t = lane & 3;
+  const int nstrips = (N + STRIP - 1) / STRIP;
+  // 1/sqrt(Dh) in the working type
+  const float scale = round_to<T>((float)(1.0 / sqrt((double)DH)));
+  float s[NT][4];
+
+  cp_async_wait<1>();  // K has landed
+  __syncthreads();
+  // the same number of rounds in every warp, so all reach the barrier
+  const int rounds = (nstrips + WARPS - 1) / WARPS;
+  for (int round = 0; round < rounds; ++round) {
+    const int strip = warp + round * WARPS, r0 = strip * STRIP;
+    if (strip < nstrips)
+      scores_softmax<T, DH, NT, QUANT>(s, Ks, qb, in.row, mask, N, r0, scale,
+                                       lane);
+    if (round == 0) {
+      cp_async_wait<0>();  // V has landed
+      __syncthreads();
+    }
+    if (strip >= nstrips) break;
+    float o[DH / 8][4];
+    pv<T, DH, NT, QUANT>(o, s, Vs, lane);
+    const int rows[2] = {r0 + g, r0 + g + 8};
+    unsigned char* st = stage + warp * STRIP * L::STAGE_LD;
+    if constexpr (QUANT) {
+      // per (row, head): absmax over the quad's 4 lanes x 16 values
+      float amax[2] = {0.f, 0.f};
 #pragma unroll
-    for (int t = 0; t < MAX_N / 32; ++t) s[t] = 0.f;
-    for (int d = 0; d < DH; d += 4) {
-      const float4 qd = *reinterpret_cast<const float4*>(qr + d);
+      for (int dt = 0; dt < DH / 8; ++dt)
 #pragma unroll
-      for (int t = 0; t < MAX_N / 32; ++t) {
-        if (t < slots) {
-          const int j = min(lane + 32 * t, N - 1);  // clamped; discarded below
-          const float4 kd = *reinterpret_cast<const float4*>(Ks + j * KS_LD + d);
-          s[t] = fmaf(qd.x, kd.x, s[t]);
-          s[t] = fmaf(qd.y, kd.y, s[t]);
-          s[t] = fmaf(qd.z, kd.z, s[t]);
-          s[t] = fmaf(qd.w, kd.w, s[t]);
+        for (int e = 0; e < 4; ++e) amax[e >> 1] = fmaxf(amax[e >> 1], fabsf(o[dt][e]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float sc = fmaxf(__fdiv_rn(quad_max(amax[r]), 127.f), kQuantEps);
+        if (t == 0 && rows[r] < N)
+          q_scale[((size_t)b * N + rows[r]) * H + h] = sc;
+#pragma unroll
+        for (int dt = 0; dt < DH / 8; ++dt) {
+          char2 c2;
+          c2.x = quantize_code(o[dt][2 * r], sc);
+          c2.y = quantize_code(o[dt][2 * r + 1], sc);
+          *reinterpret_cast<char2*>(st + (g + 8 * r) * L::STAGE_LD + dt * 8 + 2 * t) = c2;
+        }
+      }
+      store_staged<DH>(st, L::STAGE_LD,
+                       reinterpret_cast<unsigned char*>(q_out + b * os.batch + h * os.head),
+                       os.row, r0, N, lane);
+    } else if constexpr (L::kBf16) {
+#pragma unroll
+      for (int dt = 0; dt < DH / 8; ++dt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(st + (g + 8 * r) * L::STAGE_LD +
+                                       (dt * 8 + 2 * t) * 2) =
+              pack_bf16(o[dt][2 * r], o[dt][2 * r + 1]);
+      store_staged<DH * 2>(st, L::STAGE_LD,
+                           reinterpret_cast<unsigned char*>(out + b * os.batch + h * os.head),
+                           (long long)os.row * 2, r0, N, lane);
+    } else {
+      T* ob = out + b * os.batch + h * os.head;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < N) {
+#pragma unroll
+          for (int dt = 0; dt < DH / 8; ++dt)
+            *reinterpret_cast<float2*>(ob + (long long)rows[r] * os.row + dt * 8 + 2 * t) =
+                make_float2(o[dt][2 * r], o[dt][2 * r + 1]);
         }
       }
     }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < MAX_N / 32; ++t) {
-      const int j = lane + 32 * t;
-      if (t < slots && j < N) {
-        if (mask != nullptr) s[t] += mask[(size_t)qi * N + j];
-        mx = fmaxf(mx, s[t]);
-      }
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < MAX_N / 32; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = (t < slots && j < N) ? expf(s[t] - mx) : 0.f;
-      sum += s[t];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < MAX_N / 32; ++t) {
-      const int j = lane + 32 * t;
-      if (t < slots && j < N) P[j] = round_to<T>(s[t] / sum);
-    }
-    __syncwarp();
-    float o[OUTS];
-#pragma unroll
-    for (int c = 0; c < OUTS; ++c) o[c] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float p = P[j];
-#pragma unroll
-      for (int c = 0; c < OUTS; ++c) o[c] = fmaf(p, Vs[j * DH + lane + 32 * c], o[c]);
-    }
-    const long long orow = b * os.batch + h * os.head + qi * os.row;
-    if constexpr (QUANT) {
-      float amax = 0.f;
-#pragma unroll
-      for (int c = 0; c < OUTS; ++c) amax = fmaxf(amax, fabsf(o[c]));
-      amax = warp_max(amax);
-      const float sc = fmaxf(__fdiv_rn(amax, 127.f), kQuantEps);
-#pragma unroll
-      for (int c = 0; c < OUTS; ++c) q_out[orow + lane + 32 * c] = quantize_code(o[c], sc);
-      if (lane == 0) q_scale[((size_t)b * N + qi) * gridDim.y + h] = sc;
-    } else {
-#pragma unroll
-      for (int c = 0; c < OUTS; ++c) out[orow + lane + 32 * c] = from_f32<T>(o[c]);
-    }
-    __syncwarp();  // P is rewritten by the warp's next query
   }
 }
 
-template <typename T, int DH, bool QUANT>
-int launch(const void* q, const void* k, const void* v, const void* mask,
-           void* out, void* q_scale, int B, int N, int H, Strides in,
-           Strides os, cudaStream_t s) {
+template <typename T, int DH, int NT, bool QUANT>
+int launch_nt(const void* q, const void* k, const void* v, const void* mask,
+              void* out, void* q_scale, int B, int N, int H, Strides in,
+              Strides os, cudaStream_t s) {
+  constexpr size_t bytes = Layout<T, DH, NT, QUANT>::bytes;
   // the shared-memory opt-in is a property of the function on a device: set
   // it once per instantiation and device, not on every launch
   static unsigned long long opted_in = 0;  // bit d: device d
@@ -224,18 +518,37 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !((opted_in >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(attention_kernel<T, DH, QUANT>,
+    err = cudaFuncSetAttribute(attention_kernel<T, DH, NT, QUANT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes<DH>(MAX_N));
+                               (int)bytes);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) opted_in |= 1ull << dev;
   }
-  const dim3 grid((N + QT - 1) / QT, H, B), block(WARPS * 32);
-  attention_kernel<T, DH, QUANT><<<grid, block, smem_bytes<DH>(N), s>>>(
+  attention_kernel<T, DH, NT, QUANT><<<B * H, WARPS * 32, bytes, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
       QUANT ? nullptr : (T*)out, QUANT ? (int8_t*)out : nullptr,
-      (float*)q_scale, N, in, os);
+      (float*)q_scale, N, H, in, os);
   return (int)cudaGetLastError();
+}
+
+// the smallest bucket of 8-key tiles that holds N keys (the text tower's 77
+// and ViT-B/16's 197 tokens each fill theirs); bf16 takes an even count, its
+// keys coming in chunks of 16
+template <typename T, int DH, bool QUANT>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           void* out, void* q_scale, int B, int N, int H, Strides in,
+           Strides os, cudaStream_t s) {
+  constexpr int NT_197 = sizeof(T) == 2 ? 26 : 25;
+  const int tiles = (N + 7) / 8;
+  if (tiles <= 4)
+    return launch_nt<T, DH, 4, QUANT>(q, k, v, mask, out, q_scale, B, N, H, in, os, s);
+  if (tiles <= 10)
+    return launch_nt<T, DH, 10, QUANT>(q, k, v, mask, out, q_scale, B, N, H, in, os, s);
+  if (tiles <= 16)
+    return launch_nt<T, DH, 16, QUANT>(q, k, v, mask, out, q_scale, B, N, H, in, os, s);
+  if (tiles <= NT_197)
+    return launch_nt<T, DH, NT_197, QUANT>(q, k, v, mask, out, q_scale, B, N, H, in, os, s);
+  return launch_nt<T, DH, 32, QUANT>(q, k, v, mask, out, q_scale, B, N, H, in, os, s);
 }
 
 // qkv [B, N, 3D] -> [B, N, D], head width 64 (K1, K8 and K5)

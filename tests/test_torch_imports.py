@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``clip_gp_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``optax`` or anything of the JAX package
+"""The port stands alone: no module of ``clip_gp_tpu_torch`` and neither
+``chip_smoke.py`` nor ``chip_ab.py`` imports ``jax``, ``optax`` or anything of the JAX package
 ``clip_gp_tpu``, at module level or inside a function. Every module of the
 port imports in a process where those packages cannot be imported, and where
 neither ``triton`` nor a CUDA toolkit is needed.
@@ -15,7 +15,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "clip_gp_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "clip_gp_tpu")
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
 
 
 def _imported_roots(path):

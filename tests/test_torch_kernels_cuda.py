@@ -6,9 +6,10 @@ runs on a machine with only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Shapes cover the ragged edges the kernels mask themselves: token counts
-that are not multiples of the 64-row query tile or the 128-row GEMM tile, a
-single token, the 256-token limit, a causal mask, and an MLP width that is
-not a multiple of the 128-column tile. Tolerances are chip_smoke.py's: fp32
+at and beside the attention core's 16-row query strips and 16-key chunks,
+token counts that are not multiples of the 128-row GEMM tile, a single
+token, the 256-token limit, a causal and a random finite additive mask, and
+an MLP width that is not a multiple of the 128-column tile. Tolerances are chip_smoke.py's: fp32
 1e-4, since both sides sum the same fp32 products in other orders; bf16 one
 bf16 ulp (2^-7 relative plus 2^-6 absolute), since both round to bf16 at the
 same points and another summation order can flip one rounding. The backward
@@ -84,6 +85,8 @@ K1_SHAPES = [  # (batch, tokens, width, heads, causal)
     (2, 197, 768, 12, False),
     (3, 77, 512, 8, True),
     (1, 256, 256, 4, False),
+    (2, 17, 128, 2, True),
+    (1, 256, 128, 2, True),
 ]
 K2_SHAPES = [  # (batch, tokens, width, hidden)
     (3, 1, 128, 512),
@@ -312,6 +315,7 @@ K5_SHAPES = [  # (batch, tokens, width, heads, causal)
     (3, 197, 768, 12, False),
     (2, 77, 512, 8, True),
     (1, 256, 256, 4, False),
+    (1, 256, 128, 2, True),
 ]
 K6_SHAPES = [  # (batch, tokens, width, hidden)
     (2, 9, 128, 512),
@@ -426,6 +430,15 @@ K7_SHAPES = [  # (batch, heads, tokens, head width, causal)
     (3, 2, 1, 32, False),
     (1, 3, 256, 64, True),
     (2, 24, 197, 32, False),
+    # the edges of the core's 16-row query strips and 16-key chunks
+    (2, 3, 15, 32, False),
+    (2, 3, 16, 64, True),
+    (2, 3, 17, 32, True),
+    (2, 3, 17, 64, False),
+    (1, 2, 255, 32, True),
+    (1, 2, 255, 64, False),
+    (1, 2, 256, 32, False),
+    (2, 2, 1, 64, True),
 ]
 K8_SHAPES = [  # (batch, tokens, width, heads, causal)
     (3, 1, 128, 2, False),
@@ -433,6 +446,8 @@ K8_SHAPES = [  # (batch, tokens, width, heads, causal)
     (2, 197, 768, 12, False),
     (3, 77, 512, 8, True),
     (1, 256, 256, 4, False),
+    (2, 17, 128, 2, True),
+    (1, 256, 128, 2, True),
 ]
 
 
@@ -467,6 +482,30 @@ def test_k8_kernel_matches_plain(device, shape, dtype):
     with torch.no_grad():
         _assert_close(_k8(p, heads), _k8(p, heads, fa.attention_block_plain),
                       dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n, dh", [(17, 32), (197, 64), (256, 64)], ids=str)
+def test_k7_kernel_matches_plain_under_a_random_additive_mask(device, n, dh, dtype):
+    q, k, v, _ = _qkv_heads(2, 3, n, dh, dtype, device, seed=n)
+    g = torch.Generator().manual_seed(n + 1)
+    mask = (2 * torch.randn(n, n, generator=g)).to(device)
+    with torch.no_grad():
+        _assert_close(fa.flash_attention(q, k, v, mask),
+                      fa.attention_plain(q, k, v, mask), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_attention_core_repeats_bit_for_bit(device, dtype):
+    """No atomics: every output element is summed by one thread in a fixed
+    order, in K7 and in the core inside K1 and K8."""
+    q, k, v, mask = _qkv_heads(3, 12, 197, 64, dtype, device, causal=True)
+    p = _inputs(2, 197, 768, dtype, device)
+    with torch.no_grad():
+        assert torch.equal(fa.flash_attention(q, k, v, mask),
+                           fa.flash_attention(q, k, v, mask))
+        assert torch.equal(_k1(p, 12), _k1(p, 12))
+        assert torch.equal(_k8(p, 12), _k8(p, 12))
 
 
 def test_k7_k8_count_one_launch_a_call_and_never_reach_the_plain_versions(device):
