@@ -29,10 +29,15 @@ class KeySequence:
     """Deterministic stream of ``torch.Generator``s on ``device`` (by default
     the GPU, see ``core/device.py``) derived from the run seed; each
     ``next()`` seeds fresh generators from a numpy ``SeedSequence`` child, so
-    streams never overlap."""
+    streams never overlap.
+
+    ``SeedSequence`` takes only non-negative entropy, while the JAX package
+    takes any int seed (``jax.random.key(-1)`` is valid), so the seed enters
+    modulo 2**64: one-to-one over the int64 seeds and over 0 .. 2**64 - 1,
+    and a non-negative seed keeps its stream."""
 
     def __init__(self, seed: int, device=None):
-        self._seq = np.random.SeedSequence(int(seed))
+        self._seq = np.random.SeedSequence(int(seed) & (2**64 - 1))
         self.device = resolve_device(device)
 
     def next(self, n: int = 1):

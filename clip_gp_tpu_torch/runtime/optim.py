@@ -159,8 +159,17 @@ class MultiGroupOptimizer:
             self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        if self.opt is not None:
-            self.opt.step()
+        """One update of every trainable tensor. A tensor the loss did not
+        reach (``.grad`` None) gets a zero gradient, so weight decay still
+        applies to it as optax's ``add_decayed_weights`` applies to every
+        leaf; torch.optim would skip it."""
+        if self.opt is None:
+            return
+        for pg in self.opt.param_groups:
+            for p in pg["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.opt.step()
 
     def set_epoch(self, epoch: int) -> None:
         for group in self.group_names:

@@ -123,6 +123,48 @@ def test_multi_group_trajectory_matches_jax(name):
     assert np.abs(got[-1]["visual_proj"] - _init_params()["visual_proj"]).max() > 1e-2
 
 
+@pytest.mark.parametrize("name", ["sgd", "adam", "adamw"])
+def test_unused_leaf_decays_as_optax(name):
+    """A trainable tensor the loss never reaches still decays: optax's chain
+    applies weight decay to its zero gradient, and the port must not skip it
+    as torch.optim skips a tensor whose ``.grad`` is None."""
+    import optax
+
+    # optax's Adam bias correction runs in fp32 (1 - 0.999 errs by 1.3e-5
+    # relative), torch's in double: a step of lr carries that difference,
+    # so lr is small enough to keep it under rtol 1e-6 of the parameters
+    lr = 0.002
+    jc, tc = _configs(name=name, lr=lr, max_epoch=3, weight_decay=0.1,
+                      momentum=0.9)
+    rng = np.random.default_rng(0)
+    init = {"used": rng.normal(size=(3, 4)).astype(np.float32),
+            "unused": rng.normal(size=(5,)).astype(np.float32)}
+    target = rng.normal(size=(3, 4)).astype(np.float32)
+
+    tx = optax.chain(jopt._core_transform(jc), optax.scale(-lr))
+    jparams = jax.tree.map(jnp.asarray, init)
+    state = tx.init(jparams)
+    jloss = lambda p: jnp.sum((p["used"] - target) ** 2)  # noqa: E731
+    tparams = {k: torch.from_numpy(v.copy()).requires_grad_(True)
+               for k, v in init.items()}
+    opt = topt.MultiGroupOptimizer(tc, {"base": lr}, {"base": list(tparams.values())})
+    for step in range(3):
+        updates, state = tx.update(jax.grad(jloss)(jparams), state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opt.zero_grad()
+        ((tparams["used"] - torch.from_numpy(target)) ** 2).sum().backward()
+        opt.step()
+        # the used leaf's values pass near zero, where fp32 rounding of the
+        # two update orders differs by a few ulp of the step
+        for key, atol in (("used", 1e-7), ("unused", 0.0)):
+            np.testing.assert_allclose(tparams[key].detach().numpy(),
+                                       np.asarray(jparams[key]), rtol=1e-6,
+                                       atol=atol, err_msg=f"step {step} {key}")
+    # the unused leaf moved toward zero on both sides
+    assert np.all(np.abs(np.asarray(jparams["unused"])) < np.abs(init["unused"]))
+    assert np.all(np.abs(tparams["unused"].detach().numpy()) < np.abs(init["unused"]))
+
+
 def test_frozen_group_is_never_updated():
     _, tc = _configs(name="sgd", lr=0.1, max_epoch=2)
     a = torch.ones(3, requires_grad=True)
