@@ -33,8 +33,11 @@ exits non-zero before printing any result. Phases, each raising on failure:
    attention core that K1, K5, K7 and K8 share (K7 at N 1 to 256 across its
    strip and chunk edges, Dh 32 and 64, both dtypes, no mask, causal and a
    random finite mask; K1, K5 and K8 at N=17 and 256), printing the largest
-   error per group; and a ``torch.profiler`` trace of three calls each of
-   K1, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx
+   error per group; a sweep of the bf16 GEMM that K1, K2 and K8 share, each
+   of its five epilogues called directly and the three blocks, at the edges
+   of its output and k tiles (GEMM_SWEEP_*), printing the largest error per
+   epilogue and block; and a ``torch.profiler`` trace of three calls each of
+   K1, K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx
    only, text B=256 N=24), printing the device time per call of each CUDA
    kernel by name;
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
@@ -205,6 +208,16 @@ K7_SHAPES = [
 CORE_SWEEP_N = (1, 15, 16, 17, 50, 77, 197, 255, 256)
 CORE_SWEEP_MASKS = ("none", "causal", "random")
 CORE_BLOCK_N = (17, 256)
+# the GEMM's sweep (phase 2, untimed): the bf16 product of ln_gemm.cu at the
+# edges of its 128x128 output tiles and 32-deep k-tiles. Each epilogue called
+# directly over GEMM_SWEEP_ROWS rows (one, a row short of and past a tile,
+# ViT-B/16 at 32 images) and GEMM_SWEEP_KN ((K, N): c_fc and c_proj at
+# D = 200, so N = 800 and 200 are not multiples of 128 and K = 200 not of
+# 32); then K1 and K8 at D = 192 (3 heads: N = 576 and 192) and K2 at D = 200
+# over the same row counts as (batch, tokens)
+GEMM_SWEEP_ROWS = (1, 127, 129, 6304)
+GEMM_SWEEP_KN = ((200, 800), (800, 200))
+GEMM_SWEEP_BLOCKS = ((1, 1), (1, 127), (1, 129), (32, 197))
 # (name, batch, tokens, width, heads) of the K8 cells, fp32 and bf16
 K8_SHAPES = [
     ("vit-b16", 32, 197, 768, 12),
@@ -631,6 +644,92 @@ def phase_core_sweep(device, batch=2, heads=3, width=128, block_heads=2):
     log(f"[core sweep] {len(worst)} groups within tolerance")
 
 
+def _gemm_direct(lib, p, epilogue):
+    """One launch of ln_gemm.cu's product with ``epilogue`` on ``p``'s a, w,
+    bias (and resid, or the LN statistics of a with gamma and beta)."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    a = p["a"]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    out = torch.empty(a.shape[0], p["w"].shape[1], dtype=a.dtype, device=a.device)
+    ln = epilogue in ("qkv", "gelu")
+    fa._gemm(lib, a, p["w"], p["bias"], out, fa.GEMM_EPILOGUES.index(epilogue),
+             stream, resid=p["resid"] if epilogue.startswith("resid") else None,
+             stats=fa._row_stats(lib, a, stream) if ln else None,
+             gamma=p["gamma"] if ln else None, beta=p["beta"] if ln else None)
+    return out
+
+
+def phase_gemm_sweep(device, heads=3, width=192, mlp_width=200):
+    """The bf16 GEMM shared by K1, K2 and K8 against its plain version,
+    untimed, at the shapes of GEMM_SWEEP_ROWS, GEMM_SWEEP_KN and
+    GEMM_SWEEP_BLOCKS; prints the largest error of each epilogue and block
+    and raises past the bf16 tolerance."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import _build
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    atol, rtol = TOLERANCES["bf16"]
+    worst = {}  # group -> ((max_abs, max_rel), where)
+
+    def check(group, what, out, ref):
+        torch.cuda.synchronize()
+        if tuple(out.shape) != tuple(ref.shape) or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"gemm sweep {group} {what}: bad output")
+        max_abs, max_rel, ok = compare(out, ref, atol, rtol)
+        if not ok:
+            raise RuntimeError(f"gemm sweep {group} {what}: kernel disagrees with "
+                               f"its plain version past the tolerance "
+                               f"({max_abs:.3e}, {max_rel:.3e})")
+        if (max_abs, max_rel) > worst.get(group, ((-1.0, -1.0), ""))[0]:
+            worst[group] = ((max_abs, max_rel), what)
+
+    lib = _build.library()
+    with torch.no_grad():
+        for m in GEMM_SWEEP_ROWS:
+            for k, n in GEMM_SWEEP_KN:
+                g = torch.Generator().manual_seed(1000 + m + k)
+
+                def rnd(*shape, scale=1.0):
+                    return (torch.randn(*shape, generator=g) * scale).to(device)
+
+                p = {"a": rnd(m, k).bfloat16(),
+                     "w": rnd(k, n, scale=k**-0.5).bfloat16(),
+                     "bias": 0.1 * rnd(n), "resid": rnd(m, n).bfloat16(),
+                     "gamma": 1 + 0.1 * rnd(k), "beta": 0.1 * rnd(k)}
+                for epi in fa.GEMM_EPILOGUES:
+                    ln = epi in ("qkv", "gelu")
+                    ref = fa.gemm_plain(p["a"], p["w"], p["bias"], epi,
+                                        resid=p["resid"],
+                                        ln_scale=p["gamma"] if ln else None,
+                                        ln_bias=p["beta"] if ln else None)
+                    check(f"epilogue {epi}", f"M={m},K={k},N={n}",
+                          _gemm_direct(lib, p, epi), ref)
+        for b, n in GEMM_SWEEP_BLOCKS:
+            what = f"B={b},N={n}"
+            p = _block_inputs(b, n, width, False, torch.bfloat16, device,
+                              seed=1100 + n)
+            k1 = _block_args("fused_ln_attention_block", p, heads)
+            check("K1 (qkv, resid_attn)", what, fa.fused_ln_attention_block(*k1),
+                  fa.ln_attention_block_plain(*k1))
+            k8 = _block_args("fused_attention_block", p, heads)
+            check("K8 (bias, bias)", what, fa.fused_attention_block(*k8),
+                  fa.attention_block_plain(*k8))
+            p = _block_inputs(b, n, mlp_width, False, torch.bfloat16, device,
+                              seed=1200 + n)
+            k2 = _block_args("fused_ln_mlp", p, heads)
+            check("K2 (gelu, resid_mlp)", what, fa.fused_ln_mlp(*k2),
+                  fa.ln_mlp_plain(*k2))
+    for group, ((max_abs, max_rel), what) in worst.items():
+        log(f"[gemm sweep] {group}: largest error at {what}: max_abs_err "
+            f"{max_abs:.3e} max_rel_err {max_rel:.3e} (tol atol {atol:.3e} "
+            f"rtol {rtol:.3e})")
+    log(f"[gemm sweep] {len(worst)} groups within tolerance")
+
+
 def _short_kernel_name(name: str) -> str:
     """A CUDA kernel's demangled name without its namespaces, return type and
     argument list."""
@@ -645,8 +744,8 @@ def _short_kernel_name(name: str) -> str:
 
 
 def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
-    """``torch.profiler`` (CUDA activity) over ``calls`` calls each of K1, K5
-    and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx only) at
+    """``torch.profiler`` (CUDA activity) over ``calls`` calls each of K1,
+    K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx only) at
     the trimmed text tower's CoCoOp chunk, after a warm-up call: prints the
     device time of each CUDA kernel by name, per call, with the number of
     launches the trace holds of it."""
@@ -689,6 +788,8 @@ def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
             args = _block_args("fused_ln_attention_block", p, heads)
             profiled(f"K1 {dtype_name}", lambda: fa.fused_ln_attention_block(*args))
             if dtype_name == "bf16":
+                args = _block_args("fused_ln_mlp", p, heads)
+                profiled("K2 bf16", lambda: fa.fused_ln_mlp(*args))
                 args = _block_args("fused_attention_block", p, heads)
                 profiled("K8 bf16", lambda: fa.fused_attention_block(*args))
                 del p, args
@@ -1683,6 +1784,7 @@ def main() -> int:
              + phase_q8_kernels(device, peaks)
              + phase_attention_kernels(device, peaks))
     phase_core_sweep(device)
+    phase_gemm_sweep(device)
     phase_profile(device)
     phase_towers(device)
     by_path = {"adapter_gp": phase_trainer(), "coop": phase_coop(),

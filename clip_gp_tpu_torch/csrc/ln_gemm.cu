@@ -18,22 +18,54 @@
 //           K1 out-proj: T((r + acc) + b)    (residual + bias in fp32)
 //           K2 c_proj:   T(r + (acc + b))
 //
-// What bounds it on an H100: operations. At ViT-B/16 batch 32 the K1 and K2
-// blocks must move some 24 and 29 MB in bf16 for 34 and 60 GFLOP, about
-// 1,400 and 2,000 FLOPs per byte (half that in fp32), above the card's ridge
-// of about 295 FLOPs per byte for bf16 tensor cores and 20 for fp32 CUDA
-// cores. This first version does
-// what a simple kernel can: 128x128 output tiles so each A/W element read
-// from device memory feeds 128 multiply-adds, LayerNorm applied while the A
-// tile is loaded (the normalised activation never goes to device memory),
-// and the epilogue applied in registers before the single store. fp32 runs on
-// the CUDA cores (8x8 outer products per thread); bf16 runs on the tensor
-// cores through WMMA (mma.sync) with fp32 accumulation. Not yet done, and
-// left for the PRs that make it fast: wgmma and TMA, multi-stage cp.async
-// pipelining, and keeping the qkv/hidden intermediates on chip.
-#include <mma.h>
-
+// The Pallas kernels it serves: K1 _fused_ln_block_kernel
+// (flash_attention.py:845: qkv with the LN prologue, epilogue 0, and the
+// out-projection, 2), K2 _fused_mlp_kernel (:329: c_fc with the LN prologue,
+// 1, and c_proj, 3) and K8 _fused_block_kernel (:174: qkv and out-projection,
+// both 4).
+//
+// What bounds it on an H100: operations. K1's qkv product at ViT-B/16 batch
+// 512 (M = 100,864 rows, K = 768, N = 2,304) is 357 GFLOP for about 624 MB
+// of bf16 moved (x read, qkv written), some 570 FLOPs per byte, above the
+// card's ridge of about 295 FLOPs per byte for bf16 tensor cores (20 for the
+// fp32 CUDA cores); K2's c_fc and c_proj and the out-projections lie higher
+// or near it. So the design keeps the tensor cores fed:
+// - fp32 runs on the CUDA cores (8x8 outer products per thread, 128x128
+//   tiles), unchanged since the first version.
+// - bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulators) on 128x128 output
+//   tiles, 4 warps each holding a 64x64 block of accumulators in registers
+//   (128 floats a thread), so each operand fragment an ldmatrix brings feeds
+//   8 (A) or 4 (W) products. A and W k-tiles of depth 32 stream through a
+//   ring of 4 shared-memory stages filled by 16-byte cp.async (rows past M,
+//   columns past N and a K tail zero-filled by the src-size form), so the
+//   copies of tiles k+1..k+3 overlap the products of tile k, with one
+//   __syncthreads per k-tile. Shared rows are padded by 8 elements, so the 8
+//   rows an ldmatrix phase reads fall in 8 distinct bank groups. A [M,K] is
+//   read by ldmatrix.x4; W [K,N] is the .col operand, read by
+//   ldmatrix.x4.trans. 74 KB of ring a block (dynamic shared memory), about
+//   200 registers a thread: two blocks an SM.
+// - the LN prologue (option "normalise the landed stage"): each thread
+//   normalises the A chunks it copied itself, in shared memory, after its
+//   cp.async wait and before the k-tile's barrier, so it adds no barrier;
+//   its rows' mean/rstd stay in registers for the whole k-loop and gamma/beta
+//   of its 8 k are read one tile ahead. Cost: 32 LN elements a thread per
+//   k-tile (about 150 instructions beside 64 mma.sync a warp), once per
+//   block rather than once per warp that reads the rows. The rounding point
+//   is unchanged: LN in fp32, rounded once to bf16 before the product.
+// - the epilogue runs in registers straight from the accumulators (a lane
+//   holds two adjacent columns in two rows of each 16x8 tile): bias,
+//   residual and QuickGELU per element as apply_epilogue says, stored as
+//   bf16x2.
+// - no split-K and no atomics: every output element is summed by one thread
+//   in a fixed k order, so two calls agree bit for bit.
+// Left for wgmma and TMA: mma.sync reaches about two thirds of the card's
+// bf16 peak at best and every operand passes through registers by ldmatrix,
+// which makes shared-memory bandwidth the next wall; warpgroup products
+// reading both operands from shared memory, TMA copies and a persistent
+// grid whose epilogue overlaps the next tile's loads are the next step, then
+// keeping the qkv/hidden intermediates on chip.
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace cgt;
 
@@ -168,14 +200,22 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------- bf16 ----
 constexpr int H_BM = 128, H_BN = 128, H_BK = 32;
-constexpr int H_LDA = H_BK + 8;  // padded smem rows (elements)
-constexpr int H_LDB = H_BN + 8;
+constexpr int H_STAGES = 4;
+constexpr int H_THREADS = 128;   // 4 warps as 2 (rows) x 2 (cols) of 64x64
+constexpr int H_LDA = H_BK + 8;  // padded smem rows (elements): the 8 rows
+constexpr int H_LDB = H_BN + 8;  // an ldmatrix phase reads hit 8 bank groups
+constexpr int H_A_STAGE = H_BM * H_LDA, H_B_STAGE = H_BK * H_LDB;
+constexpr size_t H_SMEM_BYTES =
+    sizeof(__nv_bfloat16) * (size_t)H_STAGES * (H_A_STAGE + H_B_STAGE);
+// 16-byte chunks of one stage each thread copies
+constexpr int H_A_CHUNKS = H_BM * H_BK / 8 / H_THREADS;  // 4
+constexpr int H_B_CHUNKS = H_BK * H_BN / 8 / H_THREADS;  // 4
 
-// 8 warps as 2 (rows) x 4 (cols); each warp owns a 64x32 output block of
-// 4x2 WMMA 16x16 fp32 accumulators. Requires K % 8 == 0, N % 8 == 0 and
-// 16-byte aligned A/W/out (checked by the Python wrapper).
+// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned A/W/out (checked by
+// the Python wrapper), so a 16-byte chunk of A or W lies wholly inside or
+// wholly outside the matrix, and column pairs (n, n + 1) with n even too.
 template <int EPI>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(H_THREADS, 2)
     gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                      const __nv_bfloat16* __restrict__ W,
                      const float* __restrict__ bias,
@@ -184,104 +224,183 @@ __global__ void __launch_bounds__(256)
                      const float* __restrict__ gamma,
                      const float* __restrict__ beta,
                      __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[H_BM * H_LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[H_BK * H_LDB];
-  __shared__ __align__(128) float stage[8][16 * 16];
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = As + H_STAGES * H_A_STAGE;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
+  const int ktiles = (K + H_BK - 1) / H_BK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  // the chunks this thread copies: A rows a_row + 32 i at k offset a_k, W
+  // rows b_row + 8 i at column offset b_n
+  const int a_row = tid >> 2, a_k = (tid & 3) * 8;
+  const int b_row = tid >> 4, b_n = (tid & 15) * 8;
+
+  auto load_tile = [&](int kt, int slot) {
+    const int k0 = kt * H_BK;
+    __nv_bfloat16* as = As + slot * H_A_STAGE;
+    __nv_bfloat16* bs = Bs + slot * H_B_STAGE;
+#pragma unroll
+    for (int i = 0; i < H_A_CHUNKS; ++i) {
+      const int row = a_row + 32 * i, gm = m0 + row, gk = k0 + a_k;
+      const bool ok = gm < M && gk < K;
+      cp_async16_zfill(as + row * H_LDA + a_k,
+                       ok ? A + (size_t)gm * K + gk : A, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < H_B_CHUNKS; ++i) {
+      const int row = b_row + 8 * i, gk = k0 + row, gn = n0 + b_n;
+      const bool ok = gk < K && gn < N;
+      cp_async16_zfill(bs + row * H_LDB + b_n,
+                       ok ? W + (size_t)gk * N + gn : W, ok);
+    }
+  };
+
+  // LN prologue, on the A chunks this thread copied, in shared memory once
+  // they have landed: their rows' statistics stay in registers for the
+  // whole k-loop, gamma and beta of the chunk's 8 k are read one tile ahead
+  float2 st[H_A_CHUNKS];
+  float4 gb[4];  // gamma[k..k+8), beta[k..k+8) of the next tile to normalise
+  auto load_gb = [&](int kt) {
+    const int gk = kt * H_BK + a_k;
+    if (gk < K) {
+      gb[0] = *reinterpret_cast<const float4*>(gamma + gk);
+      gb[1] = *reinterpret_cast<const float4*>(gamma + gk + 4);
+      gb[2] = *reinterpret_cast<const float4*>(beta + gk);
+      gb[3] = *reinterpret_cast<const float4*>(beta + gk + 4);
+    }
+  };
+  if constexpr (kHasLn<EPI>) {
+#pragma unroll
+    for (int i = 0; i < H_A_CHUNKS; ++i) {
+      const int gm = m0 + a_row + 32 * i;
+      st[i] = gm < M ? stats[gm] : make_float2(0.f, 1.f);
+    }
+    load_gb(0);
+  }
+
+  float acc[4][8][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += H_BK) {
-    // A tile: 128 rows x 32 k = 512 chunks of 8 elements (16 bytes)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int c = tid + r * 256;
-      const int row = c >> 2, kc = (c & 3) * 8;
-      const int gm = m0 + row, gk = k0 + kc;
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M && gk < K) {
-        packed = *reinterpret_cast<const uint4*>(A + (size_t)gm * K + gk);
-        if (kHasLn<EPI>) {
-          const float2 st = stats[gm];
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // ldmatrix addresses of this lane within a stage: A (x4: rows 0-15 at k
+  // 0 and 8 of a 16x16 tile), W (x4.trans: k rows 0-15 at columns 0 and 8,
+  // the B fragments of two n-tiles of 8)
+  const int a_ld = (wm + (lane & 15)) * H_LDA + (lane >> 4) * 8;
+  const int b_ld = ((lane & 7) + ((lane >> 3) & 1) * 8) * H_LDB + wn + (lane >> 4) * 8;
+
+#pragma unroll
+  for (int s = 0; s < H_STAGES - 1; ++s) {
+    if (s < ktiles) load_tile(s, s);
+    cp_async_commit();  // one group per tile, empty past the last
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int slot = kt % H_STAGES;
+    cp_async_wait<H_STAGES - 2>();  // this thread's chunks of tile kt landed
+    if constexpr (kHasLn<EPI>) {
+      __nv_bfloat16* as = As + slot * H_A_STAGE;
+      const int gk = kt * H_BK + a_k;
+      const float gv[8] = {gb[0].x, gb[0].y, gb[0].z, gb[0].w,
+                           gb[1].x, gb[1].y, gb[1].z, gb[1].w};
+      const float bv[8] = {gb[2].x, gb[2].y, gb[2].z, gb[2].w,
+                           gb[3].x, gb[3].y, gb[3].z, gb[3].w};
+#pragma unroll
+      for (int i = 0; i < H_A_CHUNKS; ++i) {
+        const int row = a_row + 32 * i;
+        if (m0 + row < M && gk < K) {
+          uint4* p = reinterpret_cast<uint4*>(as + row * H_LDA + a_k);
+          uint4 packed = *p;
           __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&packed);
 #pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const float v = (__bfloat162float(e[t]) - st.x) * st.y *
-                                gamma[gk + t] +
-                            beta[gk + t];
-            e[t] = __float2bfloat16_rn(v);
+          for (int u = 0; u < 8; ++u) {
+            const float v =
+                (__bfloat162float(e[u]) - st[i].x) * st[i].y * gv[u] + bv[u];
+            e[u] = __float2bfloat16_rn(v);
           }
+          *p = packed;
         }
       }
-      *reinterpret_cast<uint4*>(&As[row * H_LDA + kc]) = packed;
+      if (kt + 1 < ktiles) load_gb(kt + 1);
     }
-    // W tile: 32 k x 128 cols = 512 chunks of 8
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int c = tid + r * 256;
-      const int row = c >> 4, nc = (c & 15) * 8;
-      const int gk = k0 + row, gn = n0 + nc;
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (gk < K && gn < N)
-        packed = *reinterpret_cast<const uint4*>(W + (size_t)gk * N + gn);
-      *reinterpret_cast<uint4*>(&Bs[row * H_LDB + nc]) = packed;
-    }
+    // tile kt (normalised) visible to every warp, and every warp done with
+    // tile kt - 1, whose slot the next copy refills
     __syncthreads();
+    if (kt + H_STAGES - 1 < ktiles)
+      load_tile(kt + H_STAGES - 1, (kt + H_STAGES - 1) % H_STAGES);
+    cp_async_commit();
+
+    const __nv_bfloat16* as = As + slot * H_A_STAGE + a_ld;
+    const __nv_bfloat16* bs = Bs + slot * H_B_STAGE + b_ld;
 #pragma unroll
     for (int kk = 0; kk < H_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fb[2];
+      uint32_t a[4][4], b[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], &As[(wm + i * 16) * H_LDA + kk], H_LDA);
+      for (int i = 0; i < 4; ++i) ldmatrix_x4(a[i], as + i * 16 * H_LDA + kk);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * H_LDB + wn + j * 16], H_LDB);
+      for (int j = 0; j < 4; ++j)
+        ldmatrix_x4_trans(b[j], bs + kk * H_LDB + j * 16);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each 16x16 accumulator goes through the warp's staging tile
-  // so every lane knows the (row, col) of the 8 values it finishes
-  float* st = stage[warp];
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm + i * 16 + r;
-      if (m < M) {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int n = n0 + wn + j * 16 + c0 + t;
-          if (n < N) {
-            const size_t idx = (size_t)m * N + n;
-            out[idx] = apply_epilogue<EPI, __nv_bfloat16>(
-                st[r * 16 + c0 + t], bias[n], resid, idx);
-          }
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16(acc[i][2 * j], a[i], b[j][0], b[j][1]);
+          mma_bf16(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
         }
-      }
-      __syncwarp();
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block (the groups left are empty)
+
+  // epilogue from the accumulators: element e of n-tile j of m-tile i is
+  // row wm + 16 i + g + 8 (e >> 1), column wn + 8 j + 2 t + (e & 1)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + wn + 8 * j + 2 * t;
+    if (n >= N) continue;  // N is even: n < N covers n + 1
+    const float b0 = bias[n], b1 = bias[n + 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + wm + 16 * i + g + 8 * r;
+        if (m >= M) continue;
+        const size_t idx = (size_t)m * N + n;
+        __nv_bfloat162 v;
+        v.x = apply_epilogue<EPI, __nv_bfloat16>(acc[i][j][2 * r], b0, resid, idx);
+        v.y = apply_epilogue<EPI, __nv_bfloat16>(acc[i][j][2 * r + 1], b1, resid,
+                                                 idx + 1);
+        *reinterpret_cast<__nv_bfloat162*>(out + idx) = v;
+      }
+    }
+  }
+}
+
+// the dynamic shared-memory opt-in (above 48 KB) is a property of the
+// function on a device: set once per epilogue instantiation and device
+template <int EPI>
+int opt_in_bf16_smem() {
+  static unsigned long long opted_in = 0;  // bit d: device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && ((opted_in >> dev) & 1ull)) return 0;
+  err = cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)H_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  // two blocks of an SM hold 2 x 74 KB
+  err = cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64) opted_in |= 1ull << dev;
+  return 0;
 }
 
 template <int EPI>
@@ -289,16 +408,17 @@ int launch_gemm(const void* a, const void* w, const void* bias,
                 const void* resid, const void* stats, const void* gamma,
                 const void* beta, void* out, int M, int N, int K, int dtype,
                 cudaStream_t s) {
-  const dim3 block(256);
   if (dtype == kF32) {
     const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
-    gemm_f32_kernel<EPI><<<grid, block, 0, s>>>(
+    gemm_f32_kernel<EPI><<<grid, 256, 0, s>>>(
         (const float*)a, (const float*)w, (const float*)bias,
         (const float*)resid, (const float2*)stats, (const float*)gamma,
         (const float*)beta, (float*)out, M, N, K);
   } else if (dtype == kBF16) {
+    const int err = opt_in_bf16_smem<EPI>();
+    if (err != 0) return err;
     const dim3 grid((N + H_BN - 1) / H_BN, (M + H_BM - 1) / H_BM);
-    gemm_bf16_kernel<EPI><<<grid, block, 0, s>>>(
+    gemm_bf16_kernel<EPI><<<grid, H_THREADS, H_SMEM_BYTES, s>>>(
         (const __nv_bfloat16*)a, (const __nv_bfloat16*)w, (const float*)bias,
         (const __nv_bfloat16*)resid, (const float2*)stats, (const float*)gamma,
         (const float*)beta, (__nv_bfloat16*)out, M, N, K);

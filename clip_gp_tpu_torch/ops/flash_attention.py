@@ -83,6 +83,8 @@ LN_EPS = 1e-5
 # C-side enums of csrc/common.cuh, csrc/ln_gemm.cu and csrc/gemm_bwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _EPI_QKV, _EPI_GELU, _EPI_RESID_ATTN, _EPI_RESID_MLP, _EPI_BIAS = range(5)
+# their names, as gemm_plain takes them
+GEMM_EPILOGUES = ("qkv", "gelu", "resid_attn", "resid_mlp", "bias")
 # backward products (gemm_bwd.cu): N = A·B, T = the operand read transposed
 (_OP_LN_NN_BIAS, _OP_NT, _OP_NT_GELU_BWD, _OP_LN_TN, _OP_TN,
  _OP_GELU_TN) = range(6)
@@ -212,6 +214,35 @@ def ln_mlp_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     hid = hid * torch.sigmoid(1.702 * hid)
     out = _mm(hid.to(dt), w_proj.to(dt)) + b_proj.float()
     return (x32 + out).to(dt)
+
+
+def gemm_plain(a, w, bias, epilogue: str, resid=None, ln_scale=None,
+               ln_bias=None):
+    """Plain PyTorch version of one product of ``csrc/ln_gemm.cu``, the GEMM
+    inside K1, K2 and K8: ``epilogue(prologue(a) @ w)`` on a [M, K] and w
+    [K, N] of one working type T, with an fp32 bias [N]. The LN prologue of
+    "qkv" and "gelu" (``ln_scale``/``ln_bias`` given) rounds LN(a) to T;
+    the product sums in fp32; the epilogue (``GEMM_EPILOGUES``) is fp32 and
+    rounds once to T: "qkv" and "bias" T(T(acc) + b), "gelu"
+    QuickGELU(acc + b), "resid_attn" (r + acc) + b, "resid_mlp"
+    r + (acc + b), r = ``resid`` [M, N]."""
+    dt = a.dtype
+    if epilogue in ("qkv", "gelu"):
+        a = layer_norm_f32(a, ln_scale, ln_bias).to(dt)
+    acc = _mm(a, w)
+    b = bias.float()
+    if epilogue in ("qkv", "bias"):
+        out = acc.to(dt).float() + b
+    elif epilogue == "gelu":
+        out = acc + b
+        out = out * torch.sigmoid(1.702 * out)
+    elif epilogue == "resid_attn":
+        out = (resid.float() + acc) + b
+    elif epilogue == "resid_mlp":
+        out = resid.float() + (acc + b)
+    else:
+        raise ValueError(f"unknown GEMM epilogue {epilogue!r}")
+    return out.to(dt)
 
 
 def _ln_backward(dout32, dh, rstd, xhat, ln_scale):

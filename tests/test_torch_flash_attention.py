@@ -103,6 +103,74 @@ def test_ln_mlp_matches_pallas(shape, dtype):
     _close(got, expected, tol)
 
 
+def _gemm_chain(block, x, p, heads, mask):
+    """A block as its CUDA wrapper chains the GEMM of ``csrc/ln_gemm.cu``,
+    each product by ``gemm_plain``: K1 = LN-qkv, attention, out-projection +
+    residual; K2 = LN-c_fc + QuickGELU, c_proj + residual; K8 = qkv + bias,
+    attention, out-projection + bias (both biases rounded to the working
+    type first, as the wrappers pass them)."""
+    dt = x.dtype
+    b, n, d = x.shape
+    x2d = x.reshape(b * n, d)
+    ln = dict(ln_scale=p["ln_scale"], ln_bias=p["ln_bias"])
+    if block == "K2":
+        hid = tfa.gemm_plain(x2d, p["w_fc"], p["b_fc"], "gelu", **ln)
+        out = tfa.gemm_plain(hid, p["w_proj"], p["b_proj"], "resid_mlp", resid=x2d)
+        return out.reshape(b, n, d)
+    b_qkv = p["b_qkv"].to(dt).float()
+    if block == "K1":
+        qkv = tfa.gemm_plain(x2d, p["w_qkv"], b_qkv, "qkv", **ln)
+    else:
+        qkv = tfa.gemm_plain(x2d, p["w_qkv"], b_qkv, "bias")
+    q, k, v = (t.reshape(b, n, heads, d // heads).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))
+    attn = tfa.attention_plain(q, k, v, mask).transpose(1, 2).reshape(b * n, d)
+    if block == "K1":
+        out = tfa.gemm_plain(attn, p["w_out"], p["b_out"], "resid_attn", resid=x2d)
+    else:
+        out = tfa.gemm_plain(attn, p["w_out"], p["b_out"].to(dt).float(), "bias")
+    return out.reshape(b, n, d)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("block", ["K1", "K2", "K8"])
+def test_gemm_plain_chained_as_the_kernels_matches_pallas(block, dtype):
+    """The GEMM's plain version (the card's reference for each of its five
+    epilogues) composes to the Pallas block kernels' numerics."""
+    b, n, d, heads, causal = SHAPES["text-causal"]
+    jdt, tdt, tol = DTYPES[dtype]
+    p = _inputs(b, n, d, causal, seed=2)
+    mask = _t(p["mask"])
+    weights = {k: _t(p[k], tdt) for k in ("w_qkv", "w_out", "w_fc", "w_proj")}
+    vectors = {k: _t(p[k]) for k in ("ln_scale", "ln_bias", "b_qkv", "b_out",
+                                     "b_fc", "b_proj")}
+    got = _gemm_chain(block, _t(p["x"], tdt), {**weights, **vectors}, heads, mask)
+    x, jmask = _j(p["x"], jdt), _j(p["mask"])
+    jw = {k: _j(p[k], jdt) for k in weights}
+    jv = {k: _j(p[k]) for k in vectors}
+    if block == "K1":
+        expected = jfa.fused_ln_attention_block(
+            x, jv["ln_scale"], jv["ln_bias"], jw["w_qkv"],
+            jv["b_qkv"].astype(jdt), jw["w_out"], jv["b_out"], heads, jmask,
+            interpret=True)
+    elif block == "K2":
+        expected = jfa.fused_ln_mlp(
+            x, jv["ln_scale"], jv["ln_bias"], jw["w_fc"], jv["b_fc"],
+            jw["w_proj"], jv["b_proj"], interpret=True)
+    else:
+        expected = jfa.fused_attention_block(
+            x, jw["w_qkv"], jv["b_qkv"], jw["w_out"], jv["b_out"], heads, jmask,
+            interpret=True)
+    assert got.dtype == tdt and got.shape == (b, n, d)
+    _close(got, expected, tol)
+
+
+def test_gemm_plain_refuses_an_unknown_epilogue():
+    a = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="epilogue"):
+        tfa.gemm_plain(a, torch.zeros(8, 8), torch.zeros(8), "relu")
+
+
 def _k1_args(dtype=torch.float32, b=1, n=9, d=128, heads=2):
     p = _inputs(b, n, d, False)
     return [

@@ -115,6 +115,72 @@ def test_k2_kernel_matches_plain(device, shape, dtype):
         _assert_close(_k2(p), _k2(p, fa.ln_mlp_plain), dtype)
 
 
+# ---------------------------------------------------------------------------
+# The GEMM of ln_gemm.cu that K1, K2 and K8 launch, called directly in bf16
+# with each of its five epilogues, against the plain composition of the same
+# roundings, at the ragged edges of its 128x128 output tiles and 32-deep
+# k-tiles: one row, a row short of and past a tile, ViT-B/16 at 32 images
+# (6,304 rows); N = 800 and 200 (not multiples of 128) and K = 200 (not a
+# multiple of 32): c_fc and c_proj at D = 200.
+# ---------------------------------------------------------------------------
+
+GEMM_EPILOGUES = list(fa.GEMM_EPILOGUES)
+GEMM_ROWS = [1, 127, 129, 6304]
+GEMM_KN = [(200, 800), (800, 200)]
+
+
+def _gemm_inputs(m, k, n, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device)
+
+    return {"a": rnd(m, k).bfloat16(), "w": rnd(k, n, scale=k**-0.5).bfloat16(),
+            "bias": 0.1 * rnd(n), "resid": rnd(m, n).bfloat16(),
+            "gamma": 1 + 0.1 * rnd(k), "beta": 0.1 * rnd(k)}
+
+
+def _gemm_kernel(p, epilogue):
+    from clip_gp_tpu_torch.ops import _build
+
+    code = GEMM_EPILOGUES.index(epilogue)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(p["a"].device).cuda_stream
+    out = torch.empty(p["a"].shape[0], p["w"].shape[1], dtype=torch.bfloat16,
+                      device=p["a"].device)
+    ln = epilogue in ("qkv", "gelu")
+    resid = epilogue.startswith("resid")
+    fa._gemm(lib, p["a"], p["w"], p["bias"], out, code, stream,
+             resid=p["resid"] if resid else None,
+             stats=fa._row_stats(lib, p["a"], stream) if ln else None,
+             gamma=p["gamma"] if ln else None, beta=p["beta"] if ln else None)
+    return out
+
+
+def _gemm_plain(p, epilogue):
+    ln = epilogue in ("qkv", "gelu")
+    return fa.gemm_plain(p["a"], p["w"], p["bias"], epilogue, resid=p["resid"],
+                         ln_scale=p["gamma"] if ln else None,
+                         ln_bias=p["beta"] if ln else None)
+
+
+@pytest.mark.parametrize("kn", GEMM_KN, ids=lambda kn: f"K{kn[0]}-N{kn[1]}")
+@pytest.mark.parametrize("m", GEMM_ROWS, ids=lambda m: f"M{m}")
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+def test_bf16_gemm_epilogue_matches_plain(device, epilogue, m, kn):
+    p = _gemm_inputs(m, *kn, device, seed=m)
+    _assert_close(_gemm_kernel(p, epilogue), _gemm_plain(p, epilogue),
+                  torch.bfloat16)
+
+
+def test_bf16_gemm_repeats_bit_for_bit(device):
+    """No split-K, no atomics: each output element is summed by one thread in
+    a fixed k order."""
+    p = _gemm_inputs(6304, 768, 2304, device, seed=5)
+    for epilogue in GEMM_EPILOGUES:
+        assert torch.equal(_gemm_kernel(p, epilogue), _gemm_kernel(p, epilogue))
+
+
 def _assert_grad_close(out, ref, name):
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == ref.shape, name
