@@ -8,7 +8,9 @@
 // prologue: LayerNorm of each A row (fp32 mean/rstd from ln_stats_kernel,
 //           fp32 gamma/beta), rounded to the working type as the Pallas
 //           kernel rounds ``h.astype(x.dtype)``; used by the qkv projection
-//           (K1) and c_fc (K2). The out-projection and c_proj read A as is.
+//           (K1) and c_fc (K2), inside the fp32 GEMM and as a pass of its
+//           own before the bf16 one. The out-projection and c_proj read A
+//           as is.
 // epilogue: K1 qkv:      T(T(acc) + b)       (the kernel rounds the product
 //                                             before adding b_qkv)
 //           K8 qkv and out-proj: T(T(acc) + b), the same without the LN
@@ -35,35 +37,40 @@
 // - bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulators) on 128x128 output
 //   tiles, 4 warps each holding a 64x64 block of accumulators in registers
 //   (128 floats a thread), so each operand fragment an ldmatrix brings feeds
-//   8 (A) or 4 (W) products. A and W k-tiles of depth 32 stream through a
-//   ring of 4 shared-memory stages filled by 16-byte cp.async (rows past M,
+//   8 (A) or 4 (W) products. A and W k-tiles of depth 64 stream through a
+//   ring of 3 shared-memory stages filled by 16-byte cp.async (rows past M,
 //   columns past N and a K tail zero-filled by the src-size form), so the
-//   copies of tiles k+1..k+3 overlap the products of tile k, with one
-//   __syncthreads per k-tile. Shared rows are padded by 8 elements, so the 8
-//   rows an ldmatrix phase reads fall in 8 distinct bank groups. A [M,K] is
-//   read by ldmatrix.x4; W [K,N] is the .col operand, read by
-//   ldmatrix.x4.trans. 74 KB of ring a block (dynamic shared memory), about
-//   200 registers a thread: two blocks an SM.
-// - the LN prologue (option "normalise the landed stage"): each thread
-//   normalises the A chunks it copied itself, in shared memory, after its
-//   cp.async wait and before the k-tile's barrier, so it adds no barrier;
-//   its rows' mean/rstd stay in registers for the whole k-loop and gamma/beta
-//   of its 8 k are read one tile ahead. Cost: 32 LN elements a thread per
-//   k-tile (about 150 instructions beside 64 mma.sync a warp), once per
-//   block rather than once per warp that reads the rows. The rounding point
-//   is unchanged: LN in fp32, rounded once to bf16 before the product.
-// - the epilogue runs in registers straight from the accumulators (a lane
-//   holds two adjacent columns in two rows of each 16x8 tile): bias,
-//   residual and QuickGELU per element as apply_epilogue says, stored as
-//   bf16x2.
+//   copies of tiles k+1 and k+2 overlap the products of tile k, with one
+//   __syncthreads per k-tile (128 mma.sync a warp between two). Shared rows
+//   are padded by 8 elements, so the 8 rows an ldmatrix phase reads fall in
+//   8 distinct bank groups. A [M,K] is read by ldmatrix.x4; W [K,N] is the
+//   .col operand, read by ldmatrix.x4.trans. 105 KB of ring a block
+//   (dynamic shared memory) and at most 255 registers a thread: two blocks
+//   an SM.
+// - the LN prologue (the qkv and c_fc products) runs as a pass of its own
+//   for bf16 (ln_apply_kernel: h = LN(x) rounded once to bf16, 2 x T x D
+//   x 2 bytes, 0.11 ms at ViT-B/16 batch 512 on an H100), and the GEMM reads
+//   h as is. Normalising the landed stage in shared memory inside the GEMM
+//   was measured first: it cost 0.67 ms on K1's qkv product (1.88 against
+//   1.21 ms without it) and 0.95 ms on c_fc, because each of the N / 128
+//   column blocks (18 for qkv, 24 for c_fc) normalises the same rows again;
+//   normalising the fragments after ldmatrix repeats that work once more per
+//   warp. The rounding point is unchanged: LN in fp32, rounded once to bf16
+//   before the product. The fp32 kernel keeps its prologue.
+// - the epilogue: after the last k-tile the ring becomes staging; each warp
+//   writes its fp32 accumulators there, then each lane finishes 8 adjacent
+//   columns of a row (bias, residual and QuickGELU per element as
+//   apply_epilogue says, in fp32) with 16-byte reads of the residual and
+//   16-byte writes of the output.
 // - no split-K and no atomics: every output element is summed by one thread
 //   in a fixed k order, so two calls agree bit for bit.
 // Left for wgmma and TMA: mma.sync reaches about two thirds of the card's
 // bf16 peak at best and every operand passes through registers by ldmatrix,
 // which makes shared-memory bandwidth the next wall; warpgroup products
 // reading both operands from shared memory, TMA copies and a persistent
-// grid whose epilogue overlaps the next tile's loads are the next step, then
-// keeping the qkv/hidden intermediates on chip.
+// grid whose epilogue overlaps the next tile's products are the next step
+// (the fp32 QuickGELU epilogue alone measured 0.6 ms of c_fc's 3.0 at batch
+// 512), then keeping the qkv/hidden intermediates on chip.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -118,6 +125,36 @@ __global__ void __launch_bounds__(256)
   }
   const float var = warp_sum(v) / (float)cols;
   if (lane == 0) stats[row] = make_float2(mean, rsqrtf(var + 1e-5f));
+}
+
+// the bf16 GEMM's LN prologue as a pass of its own: h = bf16((x - mean) *
+// rstd * gamma + beta), computed in fp32, one thread per 8 adjacent
+// columns (cols % 8 == 0), 16-byte reads and writes
+__global__ void __launch_bounds__(256)
+    ln_apply_kernel(const __nv_bfloat16* __restrict__ x,
+                    const float2* __restrict__ stats,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta,
+                    __nv_bfloat16* __restrict__ h, int rows, int cols) {
+  const int chunks = cols / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)rows * chunks) return;
+  const int row = (int)(idx / chunks), c = (int)(idx % chunks) * 8;
+  const float2 st = stats[row];
+  const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
+  const float4 g1 = *reinterpret_cast<const float4*>(gamma + c + 4);
+  const float4 b0 = *reinterpret_cast<const float4*>(beta + c);
+  const float4 b1 = *reinterpret_cast<const float4*>(beta + c + 4);
+  const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  const size_t off = (size_t)row * cols + c;
+  uint4 packed = *reinterpret_cast<const uint4*>(x + off);
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&packed);
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    e[u] = __float2bfloat16_rn((__bfloat162float(e[u]) - st.x) * st.y * gv[u] +
+                               bv[u]);
+  *reinterpret_cast<uint4*>(h + off) = packed;
 }
 
 // ---------------------------------------------------------------- fp32 ----
@@ -199,8 +236,8 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------- bf16 ----
-constexpr int H_BM = 128, H_BN = 128, H_BK = 32;
-constexpr int H_STAGES = 4;
+constexpr int H_BM = 128, H_BN = 128, H_BK = 64;
+constexpr int H_STAGES = 3;
 constexpr int H_THREADS = 128;   // 4 warps as 2 (rows) x 2 (cols) of 64x64
 constexpr int H_LDA = H_BK + 8;  // padded smem rows (elements): the 8 rows
 constexpr int H_LDB = H_BN + 8;  // an ldmatrix phase reads hit 8 bank groups
@@ -208,12 +245,19 @@ constexpr int H_A_STAGE = H_BM * H_LDA, H_B_STAGE = H_BK * H_LDB;
 constexpr size_t H_SMEM_BYTES =
     sizeof(__nv_bfloat16) * (size_t)H_STAGES * (H_A_STAGE + H_B_STAGE);
 // 16-byte chunks of one stage each thread copies
-constexpr int H_A_CHUNKS = H_BM * H_BK / 8 / H_THREADS;  // 4
-constexpr int H_B_CHUNKS = H_BK * H_BN / 8 / H_THREADS;  // 4
+constexpr int H_A_CHUNKS = H_BM * H_BK / 8 / H_THREADS;  // 8
+constexpr int H_B_CHUNKS = H_BK * H_BN / 8 / H_THREADS;  // 8
+// fp32 rows of a warp's 64x64 block staged for the epilogue (72 = 8 mod
+// 32: the 4 rows of a half-warp's float2 stores hit distinct bank groups)
+constexpr int H_LDC = 72;
+static_assert(H_THREADS / 32 * 64 * H_LDC * sizeof(float) <= H_SMEM_BYTES,
+              "the epilogue staging reuses the ring");
 
-// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned A/W/out (checked by
-// the Python wrapper), so a 16-byte chunk of A or W lies wholly inside or
-// wholly outside the matrix, and column pairs (n, n + 1) with n even too.
+// A is read as is: for the LN epilogues (qkv, c_fc) it is the normalised
+// activation ln_apply_kernel wrote. Requires K % 8 == 0, N % 8 == 0 and
+// 16-byte aligned A/W/out/resid/bias (checked by the Python wrapper), so a
+// 16-byte chunk of A or W, and an 8-column chunk of the output, lies wholly
+// inside or wholly outside the matrix.
 template <int EPI>
 __global__ void __launch_bounds__(H_THREADS, 2)
     gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
@@ -228,58 +272,36 @@ __global__ void __launch_bounds__(H_THREADS, 2)
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + H_STAGES * H_A_STAGE;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
-  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
+  constexpr int WARPS_N = H_BN / 64;  // warps side by side along N
+  const int wm = (warp / WARPS_N) * 64, wn = (warp % WARPS_N) * 64;
   const int ktiles = (K + H_BK - 1) / H_BK;
 
-  // the chunks this thread copies: A rows a_row + 32 i at k offset a_k, W
-  // rows b_row + 8 i at column offset b_n
-  const int a_row = tid >> 2, a_k = (tid & 3) * 8;
-  const int b_row = tid >> 4, b_n = (tid & 15) * 8;
+  // the chunks this thread copies: A rows a_row + A_STEP i at k offset a_k,
+  // W rows b_row + B_STEP i at column offset b_n
+  constexpr int A_STEP = H_THREADS / (H_BK / 8), B_STEP = H_THREADS / (H_BN / 8);
+  const int a_row = tid / (H_BK / 8), a_k = tid % (H_BK / 8) * 8;
+  const int b_row = tid / (H_BN / 8), b_n = tid % (H_BN / 8) * 8;
 
-  auto load_tile = [&](int kt, int slot) {
-    const int k0 = kt * H_BK;
+  auto load_tile = [&](int kt) {
+    const int k0 = kt * H_BK, slot = kt % H_STAGES;
     __nv_bfloat16* as = As + slot * H_A_STAGE;
     __nv_bfloat16* bs = Bs + slot * H_B_STAGE;
 #pragma unroll
     for (int i = 0; i < H_A_CHUNKS; ++i) {
-      const int row = a_row + 32 * i, gm = m0 + row, gk = k0 + a_k;
+      const int row = a_row + A_STEP * i, gm = m0 + row, gk = k0 + a_k;
       const bool ok = gm < M && gk < K;
       cp_async16_zfill(as + row * H_LDA + a_k,
                        ok ? A + (size_t)gm * K + gk : A, ok);
     }
 #pragma unroll
     for (int i = 0; i < H_B_CHUNKS; ++i) {
-      const int row = b_row + 8 * i, gk = k0 + row, gn = n0 + b_n;
+      const int row = b_row + B_STEP * i, gk = k0 + row, gn = n0 + b_n;
       const bool ok = gk < K && gn < N;
       cp_async16_zfill(bs + row * H_LDB + b_n,
                        ok ? W + (size_t)gk * N + gn : W, ok);
     }
   };
-
-  // LN prologue, on the A chunks this thread copied, in shared memory once
-  // they have landed: their rows' statistics stay in registers for the
-  // whole k-loop, gamma and beta of the chunk's 8 k are read one tile ahead
-  float2 st[H_A_CHUNKS];
-  float4 gb[4];  // gamma[k..k+8), beta[k..k+8) of the next tile to normalise
-  auto load_gb = [&](int kt) {
-    const int gk = kt * H_BK + a_k;
-    if (gk < K) {
-      gb[0] = *reinterpret_cast<const float4*>(gamma + gk);
-      gb[1] = *reinterpret_cast<const float4*>(gamma + gk + 4);
-      gb[2] = *reinterpret_cast<const float4*>(beta + gk);
-      gb[3] = *reinterpret_cast<const float4*>(beta + gk + 4);
-    }
-  };
-  if constexpr (kHasLn<EPI>) {
-#pragma unroll
-    for (int i = 0; i < H_A_CHUNKS; ++i) {
-      const int gm = m0 + a_row + 32 * i;
-      st[i] = gm < M ? stats[gm] : make_float2(0.f, 1.f);
-    }
-    load_gb(0);
-  }
 
   float acc[4][8][4];
 #pragma unroll
@@ -295,47 +317,23 @@ __global__ void __launch_bounds__(H_THREADS, 2)
   const int a_ld = (wm + (lane & 15)) * H_LDA + (lane >> 4) * 8;
   const int b_ld = ((lane & 7) + ((lane >> 3) & 1) * 8) * H_LDB + wn + (lane >> 4) * 8;
 
+  // the ring: tiles kt + 1 and kt + 2 are in flight while tile kt is
+  // multiplied; one commit group per tile (empty past the last)
 #pragma unroll
   for (int s = 0; s < H_STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();  // one group per tile, empty past the last
+    if (s < ktiles) load_tile(s);
+    cp_async_commit();
   }
+  cp_async_wait<H_STAGES - 2>();  // this thread's chunks of tile 0 landed
 
   for (int kt = 0; kt < ktiles; ++kt) {
-    const int slot = kt % H_STAGES;
-    cp_async_wait<H_STAGES - 2>();  // this thread's chunks of tile kt landed
-    if constexpr (kHasLn<EPI>) {
-      __nv_bfloat16* as = As + slot * H_A_STAGE;
-      const int gk = kt * H_BK + a_k;
-      const float gv[8] = {gb[0].x, gb[0].y, gb[0].z, gb[0].w,
-                           gb[1].x, gb[1].y, gb[1].z, gb[1].w};
-      const float bv[8] = {gb[2].x, gb[2].y, gb[2].z, gb[2].w,
-                           gb[3].x, gb[3].y, gb[3].z, gb[3].w};
-#pragma unroll
-      for (int i = 0; i < H_A_CHUNKS; ++i) {
-        const int row = a_row + 32 * i;
-        if (m0 + row < M && gk < K) {
-          uint4* p = reinterpret_cast<uint4*>(as + row * H_LDA + a_k);
-          uint4 packed = *p;
-          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&packed);
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const float v =
-                (__bfloat162float(e[u]) - st[i].x) * st[i].y * gv[u] + bv[u];
-            e[u] = __float2bfloat16_rn(v);
-          }
-          *p = packed;
-        }
-      }
-      if (kt + 1 < ktiles) load_gb(kt + 1);
-    }
-    // tile kt (normalised) visible to every warp, and every warp done with
-    // tile kt - 1, whose slot the next copy refills
+    // tile kt visible to every warp, and every warp done with tile kt - 1,
+    // whose slot the next copy refills
     __syncthreads();
-    if (kt + H_STAGES - 1 < ktiles)
-      load_tile(kt + H_STAGES - 1, (kt + H_STAGES - 1) % H_STAGES);
+    if (kt + H_STAGES - 1 < ktiles) load_tile(kt + H_STAGES - 1);
     cp_async_commit();
 
+    const int slot = kt % H_STAGES;
     const __nv_bfloat16* as = As + slot * H_A_STAGE + a_ld;
     const __nv_bfloat16* bs = Bs + slot * H_B_STAGE + b_ld;
 #pragma unroll
@@ -354,30 +352,52 @@ __global__ void __launch_bounds__(H_THREADS, 2)
           mma_bf16(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
         }
     }
+    cp_async_wait<H_STAGES - 2>();  // this thread's chunks of tile kt + 1
   }
-  cp_async_wait<0>();  // no copy outlives the block (the groups left are empty)
+  cp_async_wait<0>();  // no copy outlives the ring (the groups left are empty)
+  __syncthreads();     // every warp done with the ring: it becomes staging
 
-  // epilogue from the accumulators: element e of n-tile j of m-tile i is
-  // row wm + 16 i + g + 8 (e >> 1), column wn + 8 j + 2 t + (e & 1)
+  // epilogue: each warp stages its fp32 64x64 block (element e of n-tile j
+  // of m-tile i is row 16 i + g + 8 (e >> 1), column 8 j + 2 t + (e & 1)),
+  // then each lane finishes 8 adjacent columns of a row: 16-byte reads of
+  // the residual and writes of the output
+  float* stage = reinterpret_cast<float*>(smem) + warp * 64 * H_LDC;
+  {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + wn + 8 * j + 2 * t;
-    if (n >= N) continue;  // N is even: n < N covers n + 1
-    const float b0 = bias[n], b1 = bias[n + 1];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = m0 + wm + 16 * i + g + 8 * r;
-        if (m >= M) continue;
-        const size_t idx = (size_t)m * N + n;
-        __nv_bfloat162 v;
-        v.x = apply_epilogue<EPI, __nv_bfloat16>(acc[i][j][2 * r], b0, resid, idx);
-        v.y = apply_epilogue<EPI, __nv_bfloat16>(acc[i][j][2 * r + 1], b1, resid,
-                                                 idx + 1);
-        *reinterpret_cast<__nv_bfloat162*>(out + idx) = v;
-      }
-    }
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(stage + (16 * i + g + 8 * r) * H_LDC + 8 * j +
+                                     2 * t) =
+              make_float2(acc[i][j][2 * r], acc[i][j][2 * r + 1]);
+  }
+  __syncwarp();
+  const int c = (lane & 7) * 8, n = n0 + wn + c;
+  if (n >= N) return;  // N % 8 == 0: the chunk is wholly past N
+  const float4 b0 = *reinterpret_cast<const float4*>(bias + n);
+  const float4 b1 = *reinterpret_cast<const float4*>(bias + n + 4);
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll 4
+  for (int row = lane >> 3; row < 64; row += 4) {
+    const int m = m0 + wm + row;
+    if (m >= M) break;
+    const size_t idx = (size_t)m * N + n;
+    const float4 v0 = *reinterpret_cast<const float4*>(stage + row * H_LDC + c);
+    const float4 v1 = *reinterpret_cast<const float4*>(stage + row * H_LDC + c + 4);
+    const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    uint4 r8 = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (EPI == kEpiResidAttn || EPI == kEpiResidMlp)
+      r8 = *reinterpret_cast<const uint4*>(resid + idx);
+    const __nv_bfloat16* rv = reinterpret_cast<const __nv_bfloat16*>(&r8);
+    uint4 o8;
+    __nv_bfloat16* ov = reinterpret_cast<__nv_bfloat16*>(&o8);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      ov[u] = apply_epilogue<EPI, __nv_bfloat16>(v[u], bv[u], rv, u);
+    *reinterpret_cast<uint4*>(out + idx) = o8;
   }
 }
 
@@ -394,7 +414,7 @@ int opt_in_bf16_smem() {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)H_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  // two blocks of an SM hold 2 x 74 KB
+  // two blocks of an SM hold 2 x 105 KB
   err = cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
@@ -446,8 +466,23 @@ extern "C" int cgt_ln_stats(const void* x, void* stats, int rows, int cols,
   return (int)cudaGetLastError();
 }
 
-// stats/gamma/beta are read by the LN epilogues (K1 qkv, c_fc) only, resid
-// by the residual ones (out-proj, c_proj) only; the others may be null
+// the normalised bf16 activation h [rows, cols] that the bf16 GEMM's LN
+// epilogues read as A; stats from cgt_ln_stats, gamma/beta fp32
+extern "C" int cgt_ln_apply(const void* x, const void* stats, const void* gamma,
+                            const void* beta, void* h, int rows, int cols,
+                            void* stream) {
+  if (rows < 1 || cols < 8 || cols % 8) return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)rows * (cols / 8);
+  ln_apply_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
+                    (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const float2*)stats, (const float*)gamma,
+      (const float*)beta, (__nv_bfloat16*)h, rows, cols);
+  return (int)cudaGetLastError();
+}
+
+// resid is read by the residual epilogues (out-proj, c_proj) only; stats,
+// gamma and beta by the fp32 kernel's LN epilogues (K1 qkv, c_fc) only (in
+// bf16 those take A normalised by cgt_ln_apply); the others may be null
 extern "C" int cgt_gemm(const void* a, const void* w, const void* bias,
                         const void* resid, const void* stats,
                         const void* gamma, const void* beta, void* out, int M,

@@ -460,8 +460,18 @@ def _row_stats(lib, x2d, stream):
 
 def _gemm(lib, a, w, bias, out, epilogue, stream, resid=None, stats=None,
           gamma=None, beta=None):
+    """One product of ``ln_gemm.cu`` into ``out``. With ``stats`` (the LN
+    epilogues) a bf16 ``a`` is first normalised into a copy of its own by
+    ``cgt_ln_apply``, which the GEMM reads as is; fp32 normalises inside the
+    GEMM."""
     m, k = a.shape
     n = w.shape[1]
+    if stats is not None and a.dtype == torch.bfloat16:
+        h = torch.empty_like(a)
+        _build.check(lib.cgt_ln_apply(_ptr(a), _ptr(stats), _ptr(gamma),
+                                      _ptr(beta), _ptr(h), m, k, stream),
+                     "ln_apply")
+        a, stats, gamma, beta = h, None, None, None
     _build.check(
         lib.cgt_gemm(_ptr(a), _ptr(w), _ptr(bias), _ptr(resid), _ptr(stats),
                      _ptr(gamma), _ptr(beta), _ptr(out), m, n, k,
