@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's attention kernels in several checkouts, on one GPU.
+"""A/B timing of the port's forward kernels in several checkouts, on one GPU.
 
     python3 chip_ab.py PARENT . . PARENT
 
@@ -12,8 +12,9 @@ its ``build/kernels``), then times the cells of ``CELLS`` with
 ``chip_smoke.py``'s timer and inputs (median of 20 CUDA-event timings after
 3 warm-ups, the same seeds in every run). It prints one line per run and
 cell, then, as its last line, one JSON object with the card and every run's
-times. K1, K5, K7 and K8 share the attention core; K2 does not and is the
-control.
+times. K1, K5, K7 and K8 share the attention core; K1, K2 and K8 share the
+GEMM of ``ln_gemm.cu``, whose bf16 and fp32 paths are separate, so the fp32
+cells control a bf16 change and K5 and K7 a GEMM change.
 """
 
 from __future__ import annotations

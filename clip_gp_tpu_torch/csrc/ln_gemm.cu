@@ -49,11 +49,11 @@
 //   an SM.
 // - the LN prologue (the qkv and c_fc products) runs as a pass of its own
 //   for bf16 (ln_apply_kernel: h = LN(x) rounded once to bf16, 2 x T x D
-//   x 2 bytes, 0.11 ms at ViT-B/16 batch 512 on an H100), and the GEMM reads
+//   x 2 bytes, 0.10 ms at ViT-B/16 batch 512 on an H100), and the GEMM reads
 //   h as is. Normalising the landed stage in shared memory inside the GEMM
-//   was measured first: it cost 0.67 ms on K1's qkv product (1.88 against
-//   1.21 ms without it) and 0.95 ms on c_fc, because each of the N / 128
-//   column blocks (18 for qkv, 24 for c_fc) normalises the same rows again;
+//   was measured first: the qkv product took 1.80 ms with it against 1.12
+//   without, c_fc 2.97 against 2.00, because each of the N / 128 column
+//   blocks (18 for qkv, 24 for c_fc) normalises the same rows again;
 //   normalising the fragments after ldmatrix repeats that work once more per
 //   warp. The rounding point is unchanged: LN in fp32, rounded once to bf16
 //   before the product. The fp32 kernel keeps its prologue.
@@ -69,8 +69,9 @@
 // which makes shared-memory bandwidth the next wall; warpgroup products
 // reading both operands from shared memory, TMA copies and a persistent
 // grid whose epilogue overlaps the next tile's products are the next step
-// (the fp32 QuickGELU epilogue alone measured 0.6 ms of c_fc's 3.0 at batch
-// 512), then keeping the qkv/hidden intermediates on chip.
+// (c_fc, whose epilogue runs QuickGELU, takes 2.00 ms against c_proj's 1.51
+// for the same FLOPs at batch 512), then keeping the qkv/hidden
+// intermediates on chip.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -264,9 +265,6 @@ __global__ void __launch_bounds__(H_THREADS, 2)
                      const __nv_bfloat16* __restrict__ W,
                      const float* __restrict__ bias,
                      const __nv_bfloat16* __restrict__ resid,
-                     const float2* __restrict__ stats,
-                     const float* __restrict__ gamma,
-                     const float* __restrict__ beta,
                      __nv_bfloat16* __restrict__ out, int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -440,8 +438,7 @@ int launch_gemm(const void* a, const void* w, const void* bias,
     const dim3 grid((N + H_BN - 1) / H_BN, (M + H_BM - 1) / H_BM);
     gemm_bf16_kernel<EPI><<<grid, H_THREADS, H_SMEM_BYTES, s>>>(
         (const __nv_bfloat16*)a, (const __nv_bfloat16*)w, (const float*)bias,
-        (const __nv_bfloat16*)resid, (const float2*)stats, (const float*)gamma,
-        (const float*)beta, (__nv_bfloat16*)out, M, N, K);
+        (const __nv_bfloat16*)resid, (__nv_bfloat16*)out, M, N, K);
   } else {
     return (int)cudaErrorInvalidValue;
   }
