@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's forward kernels in several checkouts, on one GPU.
+"""A/B timing of the port's kernels in several checkouts, on one GPU.
 
     python3 chip_ab.py PARENT . . PARENT
 
@@ -14,7 +14,10 @@ its ``build/kernels``), then times the cells of ``CELLS`` with
 cell, then, as its last line, one JSON object with the card and every run's
 times. K1, K5, K7 and K8 share the attention core; K1, K2 and K8 share the
 GEMM of ``ln_gemm.cu``, whose bf16 and fp32 paths are separate, so the fp32
-cells control a bf16 change and K5 and K7 a GEMM change.
+cells control a bf16 change and K5 and K7 a GEMM change. K3 and K4 (the
+backward kernels, dx only as the prompt learners launch them, at the
+trimmed text tower's CoOp step B=100 and CoCoOp chunk B=256) share the GEMM
+core of ``gemm_bwd.cu``, which no forward kernel runs.
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ CELLS = [
     ("K8 ViT B=512 bf16", "fused_attention_block", 512, 197, 768, 12, False, "bf16"),
     ("K8 ViT B=512 fp32", "fused_attention_block", 512, 197, 768, 12, False, "fp32"),
     ("K2 ViT B=512 bf16", "fused_ln_mlp", 512, 197, 768, 12, False, "bf16"),
+] + [
+    (f"{name} dx text B={b} {dtype}", kernel, b, 24, 512, 8, True, dtype)
+    for name, kernel in (("K3", "ln_attn_bwd"), ("K4", "ln_mlp_bwd"))
+    for b in (100, 256) for dtype in ("fp32", "bf16")
 ]
 
 
@@ -69,6 +76,15 @@ def _call(kernel, b, n, d, heads, causal, dtype_name, device, cs):
         p = cs._q8_block_inputs(b, n, d, dtype_name, device, seed=900)
     else:
         p = cs._block_inputs(b, n, d, causal, dtype, device, seed=900)
+    if kernel in ("ln_attn_bwd", "ln_mlp_bwd"):
+        g = torch.Generator().manual_seed(901)
+        dout = torch.randn(b, n, d, generator=g).to(device, dtype)
+        args = ((p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
+                 p["w_out"], p["mask"], heads, dout) if kernel == "ln_attn_bwd" else
+                (p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"],
+                 p["w_proj"], dout))
+        fn = getattr(fa, kernel)
+        return lambda: fn(*args, param_grads=False)
     fn = getattr(ib if kernel.startswith("q8_") else fa, kernel)
     args = cs._block_args(kernel, p, heads)
     return lambda: fn(*args)

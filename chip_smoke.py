@@ -36,10 +36,14 @@ exits non-zero before printing any result. Phases, each raising on failure:
    error per group; a sweep of the bf16 GEMM that K1, K2 and K8 share, each
    of its five epilogues called directly and the three blocks, at the edges
    of its output and k tiles (GEMM_SWEEP_*), printing the largest error per
-   epilogue and block; and a ``torch.profiler`` trace of three calls each of
-   K1, K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx
-   only, text B=256 N=24), printing the device time per call of each CUDA
-   kernel by name;
+   epilogue and block; a sweep of the 3xTF32 GEMM core of K3 and K4, each of
+   their six products called directly with both tile shapes and both io
+   dtypes at the edges of its tiles (GEMM_BWD_SWEEP_*), printing the largest
+   error per product and dtype, then the dx products timed with each tile
+   shape (GEMM_BWD_TILE_CELLS); and a ``torch.profiler`` trace of three
+   calls each of K1, K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32
+   and of K3 and K4 in fp32 (dx only and all gradients, text B=256 N=24),
+   printing the device time per call of each CUDA kernel by name;
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
    ``encode_image_q8`` (bf16, the same images) and an ``encode_text`` (256
    prompts) with random weights, and the gradient of a CoOp-shaped loss
@@ -113,12 +117,12 @@ KERNELS = {
         "clip_gp_tpu/ops/flash_attention.py:329",
     ),
     "ln_attn_bwd": (
-        f"{CSRC}gemm_bwd.cu + {CSRC}attention_bwd.cu + {CSRC}ln_bwd.cu "
-        f"+ {CSRC}ln_gemm.cu (ln_stats)",
+        f"{CSRC}gemm_bwd.cu + {CSRC}gemm_tf32.cuh + {CSRC}attention_bwd.cu "
+        f"+ {CSRC}ln_bwd.cu",
         "clip_gp_tpu/ops/flash_attention.py:668",
     ),
     "ln_mlp_bwd": (
-        f"{CSRC}gemm_bwd.cu + {CSRC}ln_bwd.cu + {CSRC}ln_gemm.cu (ln_stats)",
+        f"{CSRC}gemm_bwd.cu + {CSRC}gemm_tf32.cuh + {CSRC}ln_bwd.cu",
         "clip_gp_tpu/ops/flash_attention.py:476",
     ),
     "q8_ln_attention_block": (
@@ -218,6 +222,28 @@ CORE_BLOCK_N = (17, 256)
 GEMM_SWEEP_ROWS = (1, 127, 129, 6304)
 GEMM_SWEEP_KN = ((200, 800), (800, 200))
 GEMM_SWEEP_BLOCKS = ((1, 1), (1, 127), (1, 129), (32, 197))
+# the backward GEMM's sweep (phase 2, untimed): each of the six products of
+# K3 and K4 (GEMM_BWD_OPS, the 3xTF32 core of gemm_bwd.cu) called directly
+# after the pass that writes its A, with each tile shape and x / dout in
+# fp32 and bf16, at the edges of its 128x128, 128x64 and 64x64 output tiles
+# and 16-deep k-tiles: M over GEMM_BWD_SWEEP_ROWS (one row, a row short of and
+# past a tile, the text tower at 100 prompts; for a "tn" product M is the
+# contiguous dimension of A [K, M], so 1, 127 and 129 take its 4-byte
+# copies), N over GEMM_BWD_SWEEP_N (200 and 808 are not multiples of 64) and
+# K over GEMM_BWD_SWEEP_K (24 and 520 are not multiples of 16; 6,144 rows
+# make a weight gradient split K); held to BWD_RTOL. Then each dx product of
+# K3 and K4 at text B=100 and 256 (GEMM_BWD_TILE_CELLS: M = T, N, K) is
+# timed with each tile shape, beside the one _gemm_bwd_plan picks.
+GEMM_BWD_SWEEP_ROWS = (1, 127, 129, 2400)
+GEMM_BWD_SWEEP_N = (200, 808, 1536)
+GEMM_BWD_SWEEP_K = (24, 520, 6144)
+GEMM_BWD_TILE_CELLS = [
+    (op, t, n, k)
+    for t in (2400, 6144)
+    for op, n, k in (("ln_nn_bias", 1536, 512), ("nt", 512, 512),
+                     ("nt", 512, 1536), ("ln_nn_bias", 2048, 512),
+                     ("nt_gelu_bwd", 2048, 512), ("nt", 512, 2048))
+]
 # (name, batch, tokens, width, heads) of the K8 cells, fp32 and bf16
 K8_SHAPES = [
     ("vit-b16", 32, 197, 768, 12),
@@ -730,6 +756,125 @@ def phase_gemm_sweep(device, heads=3, width=192, mlp_width=200):
     log(f"[gemm sweep] {len(worst)} groups within tolerance")
 
 
+def _gemm_bwd_operands(op, m, n, k, dtype, device, seed):
+    """The operands of one backward product ``op``: out [m, n], a sum over
+    k; x or dout (the io operand) in ``dtype``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device)
+
+    p = {"bias": 0.1 * rnd(n), "aux": rnd(m, n)}
+    if op == "ln_nn_bias":
+        p["a"], p["b"] = rnd(m, k), rnd(k, n, scale=k**-0.5)
+    elif op in ("nt", "nt_gelu_bwd"):
+        p["a"], p["b"] = rnd(m, k), rnd(n, k, scale=k**-0.5)
+    else:
+        p["a"], p["b"] = rnd(k, m), rnd(k, n, scale=k**-0.5)
+    io = "b" if op in ("tn", "gelu_tn") else "a"
+    p[io] = p[io].to(dtype)
+    width = p["a"].shape[1]
+    p["ln_scale"], p["ln_bias"] = 1 + 0.1 * rnd(width), 0.1 * rnd(width)
+    return p
+
+
+def _gemm_bwd_direct(lib, op, p, tile=None, act=None):
+    """One launch of ``op``'s product of gemm_bwd.cu on ``p``, after the pass
+    that writes its A (LN(x) by the port's LN pass; QuickGELU(hid_pre),
+    which K4's hid_pre product writes, here from PyTorch). ``tile`` forces
+    the tile shape (the split stays the plan's)."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    a, b = p["a"], p["b"]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if op in ("ln_nn_bias", "ln_tn"):
+        a = fa._ln_f32(lib, a, p["ln_scale"], p["ln_bias"], stream)[1]
+    elif op == "gelu_tn":
+        a = fa.quick_gelu(a)
+    product = fa.GEMM_BWD_OPS[op]
+    if product == "tn":
+        (k, m), n = a.shape, b.shape[1]
+    else:
+        (m, k), n = a.shape, b.shape[1 if product == "nn_bias" else 0]
+    plan = fa._gemm_bwd_plan(m, n, k, product, fa._sm_count(a.device.index or 0))
+    return fa._gemm_bwd(lib, product, a, b, m, n, k, stream,
+                        bias=p["bias"] if product == "nn_bias" else None,
+                        aux=p["aux"] if product == "nt_gelu_bwd" else None,
+                        act=act, plan=plan if tile is None else (tile, plan[1]))
+
+
+def phase_gemm_bwd_sweep(device):
+    """The 3xTF32 GEMM core of K3 and K4 against gemm_bwd_plain, untimed, at
+    the shapes of GEMM_BWD_SWEEP_*: prints the largest error of each product
+    and io dtype and raises past BWD_RTOL; then times the dx products of
+    GEMM_BWD_TILE_CELLS with each tile shape."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import _build
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    lib = _build.library()
+    tiles = {"128x128": fa._TILE_128, "128x64": fa._TILE_128X64,
+             "64x64": fa._TILE_64}
+    worst = {}  # group -> (max_rel, max_abs, where)
+    for op in fa.GEMM_BWD_OPS:
+        for dtype_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            group = f"{op} {dtype_name}"
+            for m in GEMM_BWD_SWEEP_ROWS:
+                for n in GEMM_BWD_SWEEP_N:
+                    for k in GEMM_BWD_SWEEP_K:
+                        p = _gemm_bwd_operands(op, m, n, k, dtype, device,
+                                               seed=2000 + m + n + k)
+                        ref = fa.gemm_bwd_plain(op, p["a"], p["b"], bias=p["bias"],
+                                                aux=p["aux"], ln_scale=p["ln_scale"],
+                                                ln_bias=p["ln_bias"])
+                        checks = []
+                        for tile_name, tile in tiles.items():
+                            act = (torch.empty(m, n, device=device)
+                                   if op == "ln_nn_bias" else None)
+                            out = _gemm_bwd_direct(lib, op, p, tile, act)
+                            checks.append((tile_name, out, ref))
+                            if act is not None:
+                                checks.append((tile_name + " act", act,
+                                               fa.quick_gelu(ref)))
+                        torch.cuda.synchronize()
+                        for what, out, expected in checks:
+                            where = f"M={m},N={n},K={k},{what}"
+                            if not bool(torch.isfinite(out).all()):
+                                raise RuntimeError(f"gemm_bwd sweep {group} {where}: "
+                                                   "non-finite output")
+                            max_abs, max_rel, ok = _compare_grads([out], [expected])
+                            if not ok:
+                                raise RuntimeError(
+                                    f"gemm_bwd sweep {group} {where}: kernel disagrees "
+                                    f"with its plain version past the tolerance "
+                                    f"({max_abs:.3e}, {max_rel:.3e})")
+                            if max_rel > worst.get(group, (-1.0,))[0]:
+                                worst[group] = (max_rel, max_abs, where)
+    for group, (max_rel, max_abs, where) in worst.items():
+        log(f"[gemm_bwd sweep] {group}: largest error at {where}: max_abs_err "
+            f"{max_abs:.3e} max_rel_err {max_rel:.3e} (tol {BWD_RTOL['fp32']} x "
+            f"(max|plain| + |plain|))")
+    log(f"[gemm_bwd sweep] {len(worst)} groups within tolerance")
+    sms = fa._sm_count(device.index or 0)
+    names = {v: k for k, v in tiles.items()}
+    for op, t, n, k in GEMM_BWD_TILE_CELLS:
+        p = _gemm_bwd_operands(op, t, n, k, torch.float32, device, seed=2100)
+        times = {name: time_ms(lambda: _gemm_bwd_direct(lib, op, p, tile))
+                 for name, tile in tiles.items()}
+        plan = fa._gemm_bwd_plan(t, n, k, fa.GEMM_BWD_OPS[op], sms)
+        flops = 2 * t * n * k
+        log(f"[gemm_bwd tiles] {op} M={t} N={n} K={k} fp32: " + ", ".join(
+            f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+            for name, ms in times.items()) + f"; plan {names[plan[0]]}")
+        del p
+    torch.cuda.empty_cache()
+
+
 def _short_kernel_name(name: str) -> str:
     """A CUDA kernel's demangled name without its namespaces, return type and
     argument list."""
@@ -745,10 +890,11 @@ def _short_kernel_name(name: str) -> str:
 
 def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
     """``torch.profiler`` (CUDA activity) over ``calls`` calls each of K1,
-    K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 (dx only) at
-    the trimmed text tower's CoCoOp chunk, after a warm-up call: prints the
-    device time of each CUDA kernel by name, per call, with the number of
-    launches the trace holds of it."""
+    K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 and K4
+    (dx only, and with every gradient) in fp32 at the trimmed text tower's
+    CoCoOp chunk, after a warm-up call: prints the device time of each CUDA
+    kernel by name, per call, with the number of launches the trace holds of
+    it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -798,13 +944,18 @@ def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
                 profiled("K5 bf16", lambda: ib.q8_ln_attention_block(*args))
             del p, args
             torch.cuda.empty_cache()
-    # K3 as a CoCoOp chunk launches it (dx only), for its attention backward
+    # K3 and K4 as a CoCoOp chunk launches them (dx only), and with every
+    # gradient
     p = _block_inputs(256, 24, 512, True, torch.float32, device, seed=901)
     dout = torch.randn(256, 24, 512, generator=torch.Generator().manual_seed(902))
     dout = dout.to(device)
-    profiled("K3 fp32 dx", lambda: fa.ln_attn_bwd(
-        p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"], p["w_out"],
-        p["mask"], 8, dout, param_grads=False), shape="text B=256 N=24")
+    for param_grads, grads in ((False, "dx"), (True, "all")):
+        profiled(f"K3 fp32 {grads}", lambda: fa.ln_attn_bwd(
+            p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"], p["w_out"],
+            p["mask"], 8, dout, param_grads=param_grads), shape="text B=256 N=24")
+        profiled(f"K4 fp32 {grads}", lambda: fa.ln_mlp_bwd(
+            p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"], p["w_proj"],
+            dout, param_grads=param_grads), shape="text B=256 N=24")
 
 
 def _bwd_cost(kernel, b, n, d, itemsize, param_grads):
@@ -1785,6 +1936,7 @@ def main() -> int:
              + phase_attention_kernels(device, peaks))
     phase_core_sweep(device)
     phase_gemm_sweep(device)
+    phase_gemm_bwd_sweep(device)
     phase_profile(device)
     phase_towers(device)
     by_path = {"adapter_gp": phase_trainer(), "coop": phase_coop(),

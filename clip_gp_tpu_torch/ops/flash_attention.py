@@ -23,10 +23,11 @@ On a CUDA tensor each wrapper launches the hand-written kernels of
 ``clip_gp_tpu_torch/csrc`` (built at first use, see ``_build.py``):
 K1 = LN statistics → LN-prologue GEMM (qkv) → attention → GEMM with
 bias + residual epilogue; K2 = LN statistics → LN-prologue GEMM with
-QuickGELU epilogue → GEMM with bias + residual epilogue; K3 and K4 = the fp32
-GEMMs of ``gemm_bwd.cu`` (transposed operands, LN and QuickGELU prologues, a
-QuickGELU-derivative epilogue), the attention backward of
-``attention_bwd.cu`` and the LN backward and column sums of ``ln_bwd.cu``;
+QuickGELU epilogue → GEMM with bias + residual epilogue; K3 and K4 = an
+fp32 LN pass (LN(x) and its statistics) → the 3xTF32 GEMMs of ``gemm_bwd.cu``
+(transposed operands; bias, QuickGELU and QuickGELU-derivative epilogues)
+→ the attention backward of ``attention_bwd.cu`` (K3) → the LN backward
+and column sums of ``ln_bwd.cu``;
 K7 = the attention core of ``attention.cu`` reading contiguous heads; K8 =
 GEMM with a bias epilogue (qkv) → K1's attention core → GEMM with a bias
 epilogue. In this version the qkv and hidden intermediates pass through
@@ -62,6 +63,7 @@ tensor), so a run can show that its encodes went through the kernels.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -86,8 +88,18 @@ _EPI_QKV, _EPI_GELU, _EPI_RESID_ATTN, _EPI_RESID_MLP, _EPI_BIAS = range(5)
 # their names, as gemm_plain takes them
 GEMM_EPILOGUES = ("qkv", "gelu", "resid_attn", "resid_mlp", "bias")
 # backward products (gemm_bwd.cu): N = A·B, T = the operand read transposed
-(_OP_LN_NN_BIAS, _OP_NT, _OP_NT_GELU_BWD, _OP_LN_TN, _OP_TN,
- _OP_GELU_TN) = range(6)
+_GEMM_BWD_PRODUCTS = {"nn_bias": 0, "nt": 1, "nt_gelu_bwd": 2, "tn": 3}
+# the six products of K3 and K4, as gemm_bwd_plain names them, and the
+# product of gemm_bwd.cu each runs once its A has been written: LN(x) by
+# _ln_f32, QuickGELU(hid_pre) by K4's hid_pre product
+GEMM_BWD_OPS = {"ln_nn_bias": "nn_bias", "nt": "nt", "nt_gelu_bwd": "nt_gelu_bwd",
+                "ln_tn": "tn", "tn": "tn", "gelu_tn": "tn"}
+# the output tiles of gemm_bwd.cu (its Tile enum) -> (rows, columns, rate
+# relative to 128x128, fitted to the "[gemm_bwd tiles]" timings that
+# chip_smoke.py prints on an H100)
+_TILE_128, _TILE_64, _TILE_128X64 = range(3)
+_TILES = {_TILE_128: (128, 128, 1.0), _TILE_128X64: (128, 64, 0.9),
+          _TILE_64: (64, 64, 0.8)}
 # rows per block of the first pass of a column sum (ln_bwd.cu)
 _COLSUM_ROWS = 64
 
@@ -203,6 +215,11 @@ def attention_block_xla(h, w_qkv, b_qkv, w_out, b_out, num_heads: int,
     return attn @ w_out.to(dt) + b_out.to(dt)
 
 
+def quick_gelu(h):
+    """CLIP's QuickGELU, h·σ(1.702·h)."""
+    return h * torch.sigmoid(1.702 * h)
+
+
 def ln_mlp_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     """Plain PyTorch K2, rounding where ``_fused_mlp_kernel`` rounds: h and the
     QuickGELU output round to ``x.dtype``; biases, GELU and the residual are
@@ -210,8 +227,7 @@ def ln_mlp_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     dt = x.dtype
     x32 = x.float()
     h = layer_norm_f32(x32, ln_scale, ln_bias).to(dt)
-    hid = _mm(h, w_fc.to(dt)) + b_fc.float()
-    hid = hid * torch.sigmoid(1.702 * hid)
+    hid = quick_gelu(_mm(h, w_fc.to(dt)) + b_fc.float())
     out = _mm(hid.to(dt), w_proj.to(dt)) + b_proj.float()
     return (x32 + out).to(dt)
 
@@ -234,8 +250,7 @@ def gemm_plain(a, w, bias, epilogue: str, resid=None, ln_scale=None,
     if epilogue in ("qkv", "bias"):
         out = acc.to(dt).float() + b
     elif epilogue == "gelu":
-        out = acc + b
-        out = out * torch.sigmoid(1.702 * out)
+        out = quick_gelu(acc + b)
     elif epilogue == "resid_attn":
         out = (resid.float() + acc) + b
     elif epilogue == "resid_mlp":
@@ -243,6 +258,33 @@ def gemm_plain(a, w, bias, epilogue: str, resid=None, ln_scale=None,
     else:
         raise ValueError(f"unknown GEMM epilogue {epilogue!r}")
     return out.to(dt)
+
+
+def gemm_bwd_plain(op: str, a, b, bias=None, aux=None, ln_scale=None,
+                   ln_bias=None):
+    """Plain PyTorch version of one of the six products of K3 and K4
+    (``GEMM_BWD_OPS``), in fp32 on upcast operands as ``ln_attn_bwd_plain``
+    and ``ln_mlp_bwd_plain`` compute them: "ln_nn_bias" LN(a)·b + bias (a = x
+    [M, K], b [K, N]); "nt" a·bᵀ (a [M, K], b [N, K]); "nt_gelu_bwd"
+    (a·bᵀ)·QuickGELU′(aux) (aux = hid_pre [M, N]); "ln_tn" LN(a)ᵀ·b (a = x
+    [K, M], b [K, N]); "tn" aᵀ·b; "gelu_tn" QuickGELU(a)ᵀ·b (a = hid_pre
+    [K, M]). LN is over a's rows with ``ln_scale``/``ln_bias``."""
+    if op not in GEMM_BWD_OPS:
+        raise ValueError(f"unknown backward product {op!r}")
+    a, b = a.float(), b.float()
+    if op in ("ln_nn_bias", "ln_tn"):
+        a = layer_norm_f32(a, ln_scale, ln_bias)
+    elif op == "gelu_tn":
+        a = quick_gelu(a)
+    if GEMM_BWD_OPS[op] == "tn":
+        return a.T @ b
+    if op == "ln_nn_bias":
+        return a @ b + bias.float()
+    out = a @ b.T
+    if op == "nt_gelu_bwd":
+        s = torch.sigmoid(1.702 * aux)
+        out = out * (s + 1.702 * aux * s * (1.0 - s))
+    return out
 
 
 def _ln_backward(dout32, dh, rstd, xhat, ln_scale):
@@ -257,19 +299,21 @@ def _ln_backward(dout32, dh, rstd, xhat, ln_scale):
 
 
 def ln_attn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
-                      num_heads: int, dout):
+                      num_heads: int, dout, mm=torch.matmul):
     """Plain PyTorch K3, following ``_ln_attn_bwd_kernel``: every input is
     upcast to fp32 and the block is recomputed in fp32 (for a bf16 ``x`` this
     is an fp32 recompute, not the bf16 forward). Returns (dx in x.dtype, dγ,
     dβ, dWqkv, dbqkv, dWout, dbout): each gradient in its input's dtype,
-    except dbout, which stays fp32 (the Pallas call site casts it)."""
+    except dbout, which stays fp32 (the Pallas call site casts it). ``mm``
+    computes the five products that gemm_bwd.cu runs (qkv, d_attn, dh,
+    dWqkv, dWout); a test passes an emulation of the card's arithmetic."""
     b, n, d = x.shape
     dh = d // num_heads
     inv = 1.0 / dh**0.5
     rstd, xhat, h = _ln_recompute(x, ln_scale, ln_bias)
     dout32 = dout.float()
     w_qkv32, w_out32 = w_qkv.float(), w_out.float()
-    qkv = h @ w_qkv32 + b_qkv.float()
+    qkv = mm(h, w_qkv32) + b_qkv.float()
 
     def heads(t):  # [B, N, D] -> [B, H, N, dh]
         return t.reshape(b, n, num_heads, dh).transpose(1, 2)
@@ -286,7 +330,7 @@ def ln_attn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
     w = scores.exp()
     a = w / w.sum(-1, keepdim=True)
     out_h = a @ v
-    d_outh = heads(dout32 @ w_out32.T)
+    d_outh = heads(mm(dout32, w_out32.T))
     da = d_outh @ v.transpose(-1, -2)
     dv = a.transpose(-1, -2) @ d_outh
     ds = a * (da - (da * a).sum(-1, keepdim=True))
@@ -294,33 +338,35 @@ def ln_attn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
     dk = ds.transpose(-1, -2) @ q_s
     dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
     rows = (0, 1)
-    dwqkv = h.reshape(-1, d).T @ dqkv.reshape(-1, 3 * d)
-    dwout = merge(out_h).reshape(-1, d).T @ dout32.reshape(-1, d)
-    dx, dg, db = _ln_backward(dout32, dqkv @ w_qkv32.T, rstd, xhat, ln_scale)
+    dwqkv = mm(h.reshape(-1, d).T, dqkv.reshape(-1, 3 * d))
+    dwout = mm(merge(out_h).reshape(-1, d).T, dout32.reshape(-1, d))
+    dx, dg, db = _ln_backward(dout32, mm(dqkv, w_qkv32.T), rstd, xhat, ln_scale)
     return (dx.to(x.dtype), dg.to(ln_scale.dtype), db.to(ln_bias.dtype),
             dwqkv.to(w_qkv.dtype), dqkv.sum(rows).to(b_qkv.dtype),
             dwout.to(w_out.dtype), dout32.sum(rows))
 
 
-def ln_mlp_bwd_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, dout):
+def ln_mlp_bwd_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, dout,
+                     mm=torch.matmul):
     """Plain PyTorch K4, following ``_ln_mlp_bwd_kernel``: an fp32 recompute
     of LN, the hidden and QuickGELU, then every gradient. Returns (dx in
     x.dtype, dγ, dβ, dWfc, dbfc, dWproj, dbproj): each gradient in its
     input's dtype, except dbproj, which stays fp32 (the Pallas call site
-    casts it)."""
+    casts it). ``mm`` computes the five products that gemm_bwd.cu runs, as
+    in ``ln_attn_bwd_plain``."""
     d = x.shape[-1]
     rstd, xhat, h = _ln_recompute(x, ln_scale, ln_bias)
     dout32 = dout.float()
     w_fc32, w_proj32 = w_fc.float(), w_proj.float()
-    hid_pre = h @ w_fc32 + b_fc.float()
+    hid_pre = mm(h, w_fc32) + b_fc.float()
     s = torch.sigmoid(1.702 * hid_pre)
     act = hid_pre * s
-    dact = dout32 @ w_proj32.T
+    dact = mm(dout32, w_proj32.T)
     dhid = dact * (s + 1.702 * hid_pre * s * (1.0 - s))
     rows = tuple(range(x.dim() - 1))
-    dwproj = act.reshape(-1, act.shape[-1]).T @ dout32.reshape(-1, d)
-    dwfc = h.reshape(-1, d).T @ dhid.reshape(-1, dhid.shape[-1])
-    dx, dg, db = _ln_backward(dout32, dhid @ w_fc32.T, rstd, xhat, ln_scale)
+    dwproj = mm(act.reshape(-1, act.shape[-1]).T, dout32.reshape(-1, d))
+    dwfc = mm(h.reshape(-1, d).T, dhid.reshape(-1, dhid.shape[-1]))
+    dx, dg, db = _ln_backward(dout32, mm(dhid, w_fc32.T), rstd, xhat, ln_scale)
     return (dx.to(x.dtype), dg.to(ln_scale.dtype), db.to(ln_bias.dtype),
             dwfc.to(w_fc.dtype), dhid.sum(rows).to(b_fc.dtype),
             dwproj.to(w_proj.dtype), dout32.sum(rows))
@@ -480,25 +526,62 @@ def _gemm(lib, a, w, bias, out, epilogue, stream, resid=None, stats=None,
     )
 
 
-def _gemm_bwd(lib, op, a, b, m, n, k, stream, bias=None, aux=None, stats=None,
-              gamma=None, beta=None):
-    """One fp32 product of gemm_bwd.cu, returned as a new fp32 [m, n]
-    tensor. The op's working-type operand (A of the N·· products, B of the
-    T·N ones) may be bf16; every other operand is fp32. A T·N product (a
-    weight gradient: a sum over all T rows) whose output tiles alone would
-    not fill the card splits its K rows over ``splits`` blocks and sums the
-    parts in a second pass, in a fixed order."""
-    transposed_a = op in (_OP_LN_TN, _OP_TN, _OP_GELU_TN)
-    io = b if op in (_OP_TN, _OP_GELU_TN) else a
-    splits = 1
-    if transposed_a:
+def _ln_f32(lib, x2d, gamma, beta, stream):
+    """(row statistics [rows, 2], LN(x) [rows, D] fp32), in one pass: the
+    statistics for the LN backward, LN(x) for the products of K3 and K4
+    that take it as A."""
+    rows = x2d.shape[0]
+    stats = torch.empty(rows, 2, dtype=torch.float32, device=x2d.device)
+    h = torch.empty(x2d.shape, dtype=torch.float32, device=x2d.device)
+    _build.check(
+        lib.cgt_ln_f32(_ptr(x2d), _ptr(gamma), _ptr(beta), _ptr(stats), _ptr(h),
+                       rows, x2d.shape[1], _DTYPE_CODE[x2d.dtype], stream),
+        "ln_f32",
+    )
+    return stats, h
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _gemm_bwd_plan(m: int, n: int, k: int, product: str, sms: int):
+    """(tile, splits) of one product of gemm_bwd.cu on a card of ``sms``
+    SMs. A "tn" product (a weight gradient: K = T rows, few output tiles)
+    takes 128x128 tiles and splits K until about two blocks an SM are busy,
+    each split at least 256 rows. Any other product takes the tile shape
+    whose busiest SM has the least work (its blocks times their area over
+    the shape's rate: smaller blocks load and split more fragments for each
+    product), the larger shape on a tie."""
+    if product == "tn":
         tiles = -(-m // 128) * -(-n // 128)
-        splits = max(1, min(16, 264 // tiles, k // 512))
+        return _TILE_128, max(1, min(16, 2 * sms // tiles, k // 256))
+
+    def busiest(tile):
+        bm, bn, rate = _TILES[tile]
+        return -(-(-(-m // bm) * -(-n // bn)) // sms) * bm * bn / rate
+
+    return min(_TILES, key=busiest), 1
+
+
+def _gemm_bwd(lib, product, a, b, m, n, k, stream, bias=None, aux=None,
+              act=None, plan=None):
+    """One fp32 product of gemm_bwd.cu (``_GEMM_BWD_PRODUCTS``), returned as
+    a new fp32 [m, n] tensor. The product's io operand (A of "nt" and
+    "nt_gelu_bwd", B of "tn") may be bf16; every other operand is fp32.
+    "nn_bias" adds ``bias`` and, given ``act``, writes QuickGELU of its
+    output there too; "nt_gelu_bwd" multiplies by QuickGELU′(``aux``). The
+    tile and the split of K come from ``_gemm_bwd_plan`` unless ``plan``
+    gives them; split parts are summed in a second pass, in a fixed order."""
+    io = b if product == "tn" else a
+    tile, splits = plan or _gemm_bwd_plan(m, n, k, product,
+                                          _sm_count(a.device.index or 0))
     out = torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
     _build.check(
-        lib.cgt_gemm_bwd(_ptr(a), _ptr(b), _ptr(bias), _ptr(aux), _ptr(stats),
-                         _ptr(gamma), _ptr(beta), _ptr(out), m, n, k, splits,
-                         _DTYPE_CODE[io.dtype], op, stream),
+        lib.cgt_gemm_bwd(_ptr(a), _ptr(b), _ptr(bias), _ptr(aux), _ptr(out),
+                         _ptr(act), m, n, k, splits, _DTYPE_CODE[io.dtype],
+                         _GEMM_BWD_PRODUCTS[product], tile, stream),
         "gemm_bwd",
     )
     if splits == 1:
@@ -669,11 +752,10 @@ def ln_attn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
     t = b * n
     x2d, dout2d = x.view(t, d), dout.view(t, d)
     gamma, w_qkv32 = _f32(ln_scale), _f32(w_qkv)
-    stats = _row_stats(lib, x2d, stream)
-    qkv = _gemm_bwd(lib, _OP_LN_NN_BIAS, x2d, w_qkv32, t, 3 * d, d, stream,
-                    bias=_f32(b_qkv), stats=stats, gamma=gamma,
-                    beta=_f32(ln_bias))
-    d_attn = _gemm_bwd(lib, _OP_NT, dout2d, _f32(w_out), t, d, d, stream)
+    stats, h = _ln_f32(lib, x2d, gamma, _f32(ln_bias), stream)
+    qkv = _gemm_bwd(lib, "nn_bias", h, w_qkv32, t, 3 * d, d, stream,
+                    bias=_f32(b_qkv))
+    d_attn = _gemm_bwd(lib, "nt", dout2d, _f32(w_out), t, d, d, stream)
     dqkv = torch.empty(t, 3 * d, dtype=torch.float32, device=x.device)
     attn = (torch.empty(t, d, dtype=torch.float32, device=x.device)
             if param_grads else None)
@@ -686,15 +768,14 @@ def ln_attn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
                               num_heads, d, stream),
         "attention_bwd",
     )
-    dh = _gemm_bwd(lib, _OP_NT, dqkv, w_qkv32, t, d, 3 * d, stream)
+    dh = _gemm_bwd(lib, "nt", dqkv, w_qkv32, t, d, 3 * d, stream)
     dx, dg, db = _ln_bwd(lib, x2d, dout2d, dh, stats, gamma, stream,
                          param_grads)
     LAUNCHES[name] += 1
     if not param_grads:
         return (dx.view(b, n, d),) + (None,) * 6
-    dw_qkv = _gemm_bwd(lib, _OP_LN_TN, x2d, dqkv, d, 3 * d, t, stream,
-                       stats=stats, gamma=gamma, beta=_f32(ln_bias))
-    dw_out = _gemm_bwd(lib, _OP_TN, attn, dout2d, d, d, t, stream)
+    dw_qkv = _gemm_bwd(lib, "tn", h, dqkv, d, 3 * d, t, stream)
+    dw_out = _gemm_bwd(lib, "tn", attn, dout2d, d, d, t, stream)
     return (dx.view(b, n, d), dg.to(ln_scale.dtype), db.to(ln_bias.dtype),
             dw_qkv.to(w_qkv.dtype), _colsum(lib, dqkv, stream).to(b_qkv.dtype),
             dw_out.to(w_out.dtype), _colsum(lib, dout2d, stream))
@@ -722,21 +803,22 @@ def ln_mlp_bwd(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, dout,
     t = b * n
     x2d, dout2d = x.view(t, d), dout.view(t, d)
     gamma, w_fc32 = _f32(ln_scale), _f32(w_fc)
-    stats = _row_stats(lib, x2d, stream)
-    hid = _gemm_bwd(lib, _OP_LN_NN_BIAS, x2d, w_fc32, t, hidden, d, stream,
-                    bias=_f32(b_fc), stats=stats, gamma=gamma,
-                    beta=_f32(ln_bias))
-    dhid = _gemm_bwd(lib, _OP_NT_GELU_BWD, dout2d, _f32(w_proj), t, hidden, d,
+    stats, h = _ln_f32(lib, x2d, gamma, _f32(ln_bias), stream)
+    # QuickGELU(hid_pre), dWproj's A, written beside hid_pre
+    act = (torch.empty(t, hidden, dtype=torch.float32, device=x.device)
+           if param_grads else None)
+    hid = _gemm_bwd(lib, "nn_bias", h, w_fc32, t, hidden, d, stream,
+                    bias=_f32(b_fc), act=act)
+    dhid = _gemm_bwd(lib, "nt_gelu_bwd", dout2d, _f32(w_proj), t, hidden, d,
                      stream, aux=hid)
-    dh = _gemm_bwd(lib, _OP_NT, dhid, w_fc32, t, d, hidden, stream)
+    dh = _gemm_bwd(lib, "nt", dhid, w_fc32, t, d, hidden, stream)
     dx, dg, db = _ln_bwd(lib, x2d, dout2d, dh, stats, gamma, stream,
                          param_grads)
     LAUNCHES[name] += 1
     if not param_grads:
         return (dx.view(b, n, d),) + (None,) * 6
-    dw_fc = _gemm_bwd(lib, _OP_LN_TN, x2d, dhid, d, hidden, t, stream,
-                      stats=stats, gamma=gamma, beta=_f32(ln_bias))
-    dw_proj = _gemm_bwd(lib, _OP_GELU_TN, hid, dout2d, hidden, d, t, stream)
+    dw_fc = _gemm_bwd(lib, "tn", h, dhid, d, hidden, t, stream)
+    dw_proj = _gemm_bwd(lib, "tn", act, dout2d, hidden, d, t, stream)
     return (dx.view(b, n, d), dg.to(ln_scale.dtype), db.to(ln_bias.dtype),
             dw_fc.to(w_fc.dtype), _colsum(lib, dhid, stream).to(b_fc.dtype),
             dw_proj.to(w_proj.dtype), _colsum(lib, dout2d, stream))

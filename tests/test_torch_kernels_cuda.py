@@ -248,13 +248,117 @@ def test_k4_kernel_matches_plain(device, shape, dtype, param_grads):
 
 
 def test_backward_kernels_repeat_bit_for_bit(device):
-    """No atomics: the cross-row sums take a fixed order."""
+    """No atomics: the cross-row sums take a fixed order, in K3 and K4."""
     p = _inputs(100, 24, 512, torch.float32, device, causal=True)
     args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
             p["w_out"], p["mask"], 8, _dout(p))
     first, second = fa.ln_attn_bwd(*args), fa.ln_attn_bwd(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"],
+            p["w_proj"], _dout(p))
+    first, second = fa.ln_mlp_bwd(*args), fa.ln_mlp_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 GEMM core of gemm_bwd.cu that K3 and K4 launch, each of their
+# six products called directly (after the pass that writes its A: LN(x), or
+# QuickGELU(hid_pre), here from PyTorch) with each tile shape, against
+# gemm_bwd_plain, at the ragged edges of its 128x128, 128x64 and 64x64 tiles
+# and 16-deep k-tiles: M one row, a row short of and past a tile, the text
+# tower at 100 prompts; N 200 and 808 (not multiples of 64); K 24
+# and 520 (not multiples of 16), and 6,144 rows, which a weight gradient
+# splits. For the "tn" products M is the contiguous dimension of A [K, M],
+# so M = 1, 127 and 129 take the 4-byte copies. fp32 tolerance of the
+# backward kernels: 1e-4 x (max|plain| + |plain|).
+# ---------------------------------------------------------------------------
+
+GEMM_BWD_OPS = list(fa.GEMM_BWD_OPS)
+GEMM_BWD_ROWS = [1, 127, 129, 2400]
+GEMM_BWD_NK = [(n, k) for n in (200, 808, 1536) for k in (24, 520, 6144)]
+GEMM_BWD_TILES = {"128": fa._TILE_128, "128x64": fa._TILE_128X64, "64": fa._TILE_64}
+
+
+def _gemm_bwd_inputs(op, m, n, k, dtype, device, seed=0):
+    """The operands of ``op`` at out [m, n], sum over k; x / dout (the io
+    operand) in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device)
+
+    p = {"bias": 0.1 * rnd(n), "aux": rnd(m, n)}
+    if op == "ln_nn_bias":
+        p["a"], p["b"] = rnd(m, k), rnd(k, n, scale=k**-0.5)
+    elif op in ("nt", "nt_gelu_bwd"):
+        p["a"], p["b"] = rnd(m, k), rnd(n, k, scale=k**-0.5)
+    else:
+        p["a"], p["b"] = rnd(k, m), rnd(k, n, scale=k**-0.5)
+    io = "b" if op in ("tn", "gelu_tn") else "a"
+    p[io] = p[io].to(dtype)
+    width = p["a"].shape[1]
+    p["ln_scale"], p["ln_bias"] = 1 + 0.1 * rnd(width), 0.1 * rnd(width)
+    return p
+
+
+def _gemm_bwd_kernel(p, op, tile=None, splits=None, act=None):
+    """One launch of ``op``'s product of gemm_bwd.cu, after the pass that
+    writes its A."""
+    from clip_gp_tpu_torch.ops import _build
+
+    lib = _build.library()
+    a, b = p["a"], p["b"]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if op in ("ln_nn_bias", "ln_tn"):
+        a = fa._ln_f32(lib, a, p["ln_scale"], p["ln_bias"], stream)[1]
+    elif op == "gelu_tn":
+        a = fa.quick_gelu(a)
+    product = fa.GEMM_BWD_OPS[op]
+    if product == "tn":
+        (k, m), n = a.shape, b.shape[1]
+    else:
+        (m, k), n = a.shape, b.shape[1 if product == "nn_bias" else 0]
+    plan = None
+    if tile is not None:
+        sms = fa._sm_count(a.device.index or 0)
+        plan = (tile, splits or fa._gemm_bwd_plan(m, n, k, product, sms)[1])
+    return fa._gemm_bwd(lib, product, a, b, m, n, k, stream,
+                        bias=p["bias"] if product == "nn_bias" else None,
+                        aux=p["aux"] if product == "nt_gelu_bwd" else None,
+                        act=act, plan=plan)
+
+
+def _gemm_bwd_plain(p, op):
+    return fa.gemm_bwd_plain(op, p["a"], p["b"], bias=p["bias"], aux=p["aux"],
+                             ln_scale=p["ln_scale"], ln_bias=p["ln_bias"])
+
+
+@pytest.mark.parametrize("tile", list(GEMM_BWD_TILES), ids=lambda t: f"tile{t}")
+@pytest.mark.parametrize("m", GEMM_BWD_ROWS, ids=lambda m: f"M{m}")
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("op", GEMM_BWD_OPS)
+def test_gemm_bwd_product_matches_plain(device, op, dtype, m, tile):
+    for n, k in GEMM_BWD_NK:
+        p = _gemm_bwd_inputs(op, m, n, k, dtype, device, seed=m + n + k)
+        act = (torch.empty(m, n, device=device) if op == "ln_nn_bias" else None)
+        got = _gemm_bwd_kernel(p, op, GEMM_BWD_TILES[tile], act=act)
+        ref = _gemm_bwd_plain(p, op)
+        _assert_grad_close(got, ref, f"{op} M={m} N={n} K={k}")
+        if act is not None:
+            _assert_grad_close(act, fa.quick_gelu(ref), f"{op} act M={m} N={n} K={k}")
+
+
+def test_gemm_bwd_split_products_repeat_bit_for_bit(device):
+    """A weight gradient split over K sums its parts in a fixed order: two
+    calls agree bit for bit, and with an unsplit call to the tolerance."""
+    for dtype in DTYPES:
+        p = _gemm_bwd_inputs("tn", 512, 2048, 6144, dtype, device, seed=7)
+        first = _gemm_bwd_kernel(p, "tn", fa._TILE_128, splits=4)
+        assert torch.equal(first, _gemm_bwd_kernel(p, "tn", fa._TILE_128, splits=4))
+        _assert_grad_close(first, _gemm_bwd_kernel(p, "tn", fa._TILE_128, splits=1),
+                           "tn split 4 vs 1")
 
 
 def test_each_call_on_the_card_counts_one_launch(device):
