@@ -14,10 +14,13 @@ its ``build/kernels``), then times the cells of ``CELLS`` with
 cell, then, as its last line, one JSON object with the card and every run's
 times. K1, K5, K7 and K8 share the attention core; K1, K2 and K8 share the
 GEMM of ``ln_gemm.cu``, whose bf16 and fp32 paths are separate, so the fp32
-cells control a bf16 change and K5 and K7 a GEMM change. K3 and K4 (the
-backward kernels, dx only as the prompt learners launch them, at the
-trimmed text tower's CoOp step B=100 and CoCoOp chunk B=256) share the GEMM
-core of ``gemm_bwd.cu``, which no forward kernel runs.
+cells control a bf16 change and K5 and K7 a GEMM change. Its fp32 products
+run the 3xTF32 core of ``gemm_tf32.cuh``, as K3 and K4 (the backward
+kernels, dx only as the prompt learners launch them, at the trimmed text
+tower's CoOp step B=100 and CoCoOp chunk B=256) do through ``gemm_bwd.cu``,
+so a change to that core moves both, and the bf16 cells control it. The
+fp32 forward cells include ViT-B/16 at 32 images, the batch of a CoOp
+step's image encode.
 """
 
 from __future__ import annotations
@@ -37,10 +40,13 @@ CELLS = [
     ("K7 text B=256 bf16", "flash_attention", 256, 77, 512, 8, True, "bf16"),
     ("K1 ViT B=512 bf16", "fused_ln_attention_block", 512, 197, 768, 12, False, "bf16"),
     ("K1 ViT B=512 fp32", "fused_ln_attention_block", 512, 197, 768, 12, False, "fp32"),
+    ("K1 ViT B=32 fp32", "fused_ln_attention_block", 32, 197, 768, 12, False, "fp32"),
     ("K5 ViT B=512 bf16", "q8_ln_attention_block", 512, 197, 768, 12, False, "bf16"),
     ("K8 ViT B=512 bf16", "fused_attention_block", 512, 197, 768, 12, False, "bf16"),
     ("K8 ViT B=512 fp32", "fused_attention_block", 512, 197, 768, 12, False, "fp32"),
     ("K2 ViT B=512 bf16", "fused_ln_mlp", 512, 197, 768, 12, False, "bf16"),
+    ("K2 ViT B=512 fp32", "fused_ln_mlp", 512, 197, 768, 12, False, "fp32"),
+    ("K2 ViT B=32 fp32", "fused_ln_mlp", 32, 197, 768, 12, False, "fp32"),
 ] + [
     (f"{name} dx text B={b} {dtype}", kernel, b, 24, 512, 8, True, dtype)
     for name, kernel in (("K3", "ln_attn_bwd"), ("K4", "ln_mlp_bwd"))

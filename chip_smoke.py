@@ -33,15 +33,18 @@ exits non-zero before printing any result. Phases, each raising on failure:
    attention core that K1, K5, K7 and K8 share (K7 at N 1 to 256 across its
    strip and chunk edges, Dh 32 and 64, both dtypes, no mask, causal and a
    random finite mask; K1, K5 and K8 at N=17 and 256), printing the largest
-   error per group; a sweep of the bf16 GEMM that K1, K2 and K8 share, each
-   of its five epilogues called directly and the three blocks, at the edges
-   of its output and k tiles (GEMM_SWEEP_*), printing the largest error per
-   epilogue and block; a sweep of the 3xTF32 GEMM core of K3 and K4, each of
-   their six products called directly with both tile shapes and both io
-   dtypes at the edges of its tiles (GEMM_BWD_SWEEP_*), printing the largest
-   error per product and dtype, then the dx products timed with each tile
-   shape (GEMM_BWD_TILE_CELLS); and a ``torch.profiler`` trace of three
-   calls each of K1, K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32
+   error per group; a sweep of the GEMM that K1, K2 and K8 share, in bf16
+   (its own kernel) and fp32 (the 3xTF32 core of gemm_tf32.cuh, with each
+   of its three tile shapes), each of its five epilogues called directly and
+   the three blocks, at the edges of its output and k tiles (GEMM_SWEEP_*),
+   printing the largest error per dtype, epilogue and block, then each fp32
+   forward product timed with each tile shape (GEMM_TILE_CELLS); a sweep of
+   the same core as K3 and K4 launch it, each of their six products called
+   directly with each tile shape and both io dtypes at the edges of its
+   tiles (GEMM_BWD_SWEEP_*), printing the largest error per product and
+   dtype, then the dx products timed with each tile shape
+   (GEMM_BWD_TILE_CELLS); and a ``torch.profiler`` trace of three calls
+   each of K1, K2 and K8 at ViT-B/16 B=512 in bf16 and fp32, of K5 in bf16
    and of K3 and K4 in fp32 (dx only and all gradients, text B=256 N=24),
    printing the device time per call of each CUDA kernel by name;
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
@@ -109,11 +112,12 @@ PEAKS = {
 CSRC = "clip_gp_tpu_torch/csrc/"
 KERNELS = {
     "fused_ln_attention_block": (
-        f"{CSRC}ln_gemm.cu + {CSRC}attention.cu",
+        f"{CSRC}ln_gemm.cu + {CSRC}gemm_tf32.cuh + {CSRC}gemm_bwd.cu (LN pass) "
+        f"+ {CSRC}attention.cu",
         "clip_gp_tpu/ops/flash_attention.py:845",
     ),
     "fused_ln_mlp": (
-        f"{CSRC}ln_gemm.cu",
+        f"{CSRC}ln_gemm.cu + {CSRC}gemm_tf32.cuh + {CSRC}gemm_bwd.cu (LN pass)",
         "clip_gp_tpu/ops/flash_attention.py:329",
     ),
     "ln_attn_bwd": (
@@ -138,7 +142,7 @@ KERNELS = {
         "clip_gp_tpu/ops/flash_attention.py:34",
     ),
     "fused_attention_block": (
-        f"{CSRC}ln_gemm.cu + {CSRC}attention.cu",
+        f"{CSRC}ln_gemm.cu + {CSRC}gemm_tf32.cuh + {CSRC}attention.cu",
         "clip_gp_tpu/ops/flash_attention.py:174",
     ),
 }
@@ -212,16 +216,30 @@ K7_SHAPES = [
 CORE_SWEEP_N = (1, 15, 16, 17, 50, 77, 197, 255, 256)
 CORE_SWEEP_MASKS = ("none", "causal", "random")
 CORE_BLOCK_N = (17, 256)
-# the GEMM's sweep (phase 2, untimed): the bf16 product of ln_gemm.cu at the
-# edges of its 128x128 output tiles and 32-deep k-tiles. Each epilogue called
-# directly over GEMM_SWEEP_ROWS rows (one, a row short of and past a tile,
-# ViT-B/16 at 32 images) and GEMM_SWEEP_KN ((K, N): c_fc and c_proj at
-# D = 200, so N = 800 and 200 are not multiples of 128 and K = 200 not of
-# 32); then K1 and K8 at D = 192 (3 heads: N = 576 and 192) and K2 at D = 200
-# over the same row counts as (batch, tokens)
+# the GEMM's sweep (phase 2, untimed): the product of ln_gemm.cu in bf16 (its
+# own kernel: 128x128 output tiles, 64-deep k-tiles) and fp32 (the 3xTF32
+# core with each tile shape: 128x128, 128x64, 64x64; 16-deep k-tiles) at the
+# edges of its tiles. Each epilogue called directly over GEMM_SWEEP_ROWS rows
+# (one, a row short of and past a tile, ViT-B/16 at 32 images) and
+# GEMM_SWEEP_KN ((K, N): c_fc and c_proj at D = 200, so N = 800 and 200 are
+# not multiples of 128 or 64 and K = 200 not of 64 or 16); then K1 and K8 at
+# D = 192 (3 heads: N = 576 and 192) and K2 at D = 200 over the same row
+# counts as (batch, tokens). Then each fp32 forward product (GEMM_TILE_CELLS:
+# shape, M = B·N, product, N, K, epilogue) at ViT-B/16 B=32 and B=512 and
+# the text tower's template encode B=256 is timed with each tile shape,
+# beside the one _tile_plan picks.
 GEMM_SWEEP_ROWS = (1, 127, 129, 6304)
 GEMM_SWEEP_KN = ((200, 800), (800, 200))
 GEMM_SWEEP_BLOCKS = ((1, 1), (1, 127), (1, 129), (32, 197))
+GEMM_TILE_CELLS = [
+    (f"{tower} B={b}", b * n, product, width, k, epilogue)
+    for tower, b, n, d in (("ViT-B/16", 32, 197, 768), ("ViT-B/16", 512, 197, 768),
+                           ("text", 256, 77, 512))
+    for product, width, k, epilogue in (("qkv", 3 * d, d, "qkv"),
+                                        ("out-proj", d, d, "resid_attn"),
+                                        ("c_fc", 4 * d, d, "gelu"),
+                                        ("c_proj", d, 4 * d, "resid_mlp"))
+]
 # the backward GEMM's sweep (phase 2, untimed): each of the six products of
 # K3 and K4 (GEMM_BWD_OPS, the 3xTF32 core of gemm_bwd.cu) called directly
 # after the pass that writes its A, with each tile shape and x / dout in
@@ -298,10 +316,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def compare(out, ref, atol: float, rtol: float):
     """(max abs error, max error relative to atol + |ref|, within tolerance)."""
+    max_abs, max_rel, _, ok = compare_margin(out, ref, atol, rtol)
+    return max_abs, max_rel, ok
+
+
+def compare_margin(out, ref, atol: float, rtol: float):
+    """``compare``'s (max abs error, max error relative to atol + |ref|) and
+    the largest error over its limit atol + rtol·|ref| (the margin), then
+    whether every error is within its limit."""
     diff = (out.float() - ref.float()).abs()
     limit = atol + rtol * ref.float().abs()
     max_rel = (diff / (atol + ref.float().abs())).max().item()
-    return diff.max().item(), max_rel, bool((diff <= limit).all().item())
+    return (diff.max().item(), max_rel, (diff / limit).max().item(),
+            bool((diff <= limit).all().item()))
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +485,7 @@ def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
         out = run_kernel()
         ref = run_plain()
         torch.cuda.synchronize()
-        max_abs, max_rel, ok = compare(out, ref, atol, rtol)
+        max_abs, max_rel, worst, ok = compare_margin(out, ref, atol, rtol)
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"{name}: non-finite output")
         del out, ref
@@ -477,6 +504,7 @@ def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
         "dtype": dtype_name,
         "max_abs_err": max_abs,
         "max_rel_err": max_rel,
+        "worst_over_limit": worst,
         "tol": {"atol": atol, "rtol": rtol},
         "kernel_ms": ms,
         "ms": ms,
@@ -486,7 +514,8 @@ def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     log(f"[kernels] {name}: max_abs_err {max_abs:.3e} max_rel_err "
-        f"{max_rel:.3e} (tol atol {atol:.3e} rtol {rtol:.3e}) kernel_ms "
+        f"{max_rel:.3e} worst/limit {worst:.3f} (tol atol {atol:.3e} rtol "
+        f"{rtol:.3e}) kernel_ms "
         f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
         f"bound_ms {cell['bound_ms']:.4f} ({cell['bound_by']})")
     if not ok:
@@ -670,9 +699,19 @@ def phase_core_sweep(device, batch=2, heads=3, width=128, block_heads=2):
     log(f"[core sweep] {len(worst)} groups within tolerance")
 
 
-def _gemm_direct(lib, p, epilogue):
+def _tile_names():
+    """The three tile shapes of the 3xTF32 core, by the names the sweeps
+    print."""
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    return {"128x128": fa._TILE_128, "128x64": fa._TILE_128X64,
+            "64x64": fa._TILE_64}
+
+
+def _gemm_direct(lib, p, epilogue, tile=None):
     """One launch of ln_gemm.cu's product with ``epilogue`` on ``p``'s a, w,
-    bias (and resid, or the LN statistics of a with gamma and beta)."""
+    bias (and resid), after the LN pass over a with gamma and beta for the
+    qkv and c_fc epilogues; ``tile`` forces an fp32 tile shape."""
     import torch
 
     from clip_gp_tpu_torch.ops import flash_attention as fa
@@ -680,80 +719,121 @@ def _gemm_direct(lib, p, epilogue):
     a = p["a"]
     stream = torch.cuda.current_stream(a.device).cuda_stream
     out = torch.empty(a.shape[0], p["w"].shape[1], dtype=a.dtype, device=a.device)
-    ln = epilogue in ("qkv", "gelu")
+    if epilogue in ("qkv", "gelu"):
+        a = fa._ln_input(lib, a, p["gamma"], p["beta"], stream)
     fa._gemm(lib, a, p["w"], p["bias"], out, fa.GEMM_EPILOGUES.index(epilogue),
              stream, resid=p["resid"] if epilogue.startswith("resid") else None,
-             stats=fa._row_stats(lib, a, stream) if ln else None,
-             gamma=p["gamma"] if ln else None, beta=p["beta"] if ln else None)
+             tile=tile)
     return out
 
 
 def phase_gemm_sweep(device, heads=3, width=192, mlp_width=200):
-    """The bf16 GEMM shared by K1, K2 and K8 against its plain version,
-    untimed, at the shapes of GEMM_SWEEP_ROWS, GEMM_SWEEP_KN and
-    GEMM_SWEEP_BLOCKS; prints the largest error of each epilogue and block
-    and raises past the bf16 tolerance."""
+    """The GEMM shared by K1, K2 and K8 against its plain version, untimed,
+    in bf16 and in fp32 with each tile shape, at the shapes of
+    GEMM_SWEEP_ROWS, GEMM_SWEEP_KN and GEMM_SWEEP_BLOCKS; prints the largest
+    error of each dtype, epilogue and block and raises past TOLERANCES. Then
+    times the fp32 products of GEMM_TILE_CELLS with each tile shape."""
     import torch
 
     from clip_gp_tpu_torch.ops import _build
     from clip_gp_tpu_torch.ops import flash_attention as fa
 
-    atol, rtol = TOLERANCES["bf16"]
-    worst = {}  # group -> ((max_abs, max_rel), where)
+    worst = {}  # group -> ((max_abs, max_rel), where, dtype name)
 
-    def check(group, what, out, ref):
+    def check(group, dtype_name, what, out, ref):
         torch.cuda.synchronize()
         if tuple(out.shape) != tuple(ref.shape) or not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"gemm sweep {group} {what}: bad output")
-        max_abs, max_rel, ok = compare(out, ref, atol, rtol)
+        max_abs, max_rel, ok = compare(out, ref, *TOLERANCES[dtype_name])
         if not ok:
             raise RuntimeError(f"gemm sweep {group} {what}: kernel disagrees with "
                                f"its plain version past the tolerance "
                                f"({max_abs:.3e}, {max_rel:.3e})")
-        if (max_abs, max_rel) > worst.get(group, ((-1.0, -1.0), ""))[0]:
-            worst[group] = ((max_abs, max_rel), what)
+        if (max_abs, max_rel) > worst.get(group, ((-1.0, -1.0),))[0]:
+            worst[group] = ((max_abs, max_rel), what, dtype_name)
 
     lib = _build.library()
+    tiles = _tile_names()
     with torch.no_grad():
-        for m in GEMM_SWEEP_ROWS:
-            for k, n in GEMM_SWEEP_KN:
-                g = torch.Generator().manual_seed(1000 + m + k)
+        for dtype_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            # bf16 has one tile shape
+            shapes = {"": None} if dtype_name == "bf16" else {
+                f" tile {name}": tile for name, tile in tiles.items()}
+            for m in GEMM_SWEEP_ROWS:
+                for k, n in GEMM_SWEEP_KN:
+                    g = torch.Generator().manual_seed(1000 + m + k)
 
-                def rnd(*shape, scale=1.0):
-                    return (torch.randn(*shape, generator=g) * scale).to(device)
+                    def rnd(*shape, scale=1.0):
+                        return (torch.randn(*shape, generator=g) * scale).to(device)
 
-                p = {"a": rnd(m, k).bfloat16(),
-                     "w": rnd(k, n, scale=k**-0.5).bfloat16(),
-                     "bias": 0.1 * rnd(n), "resid": rnd(m, n).bfloat16(),
-                     "gamma": 1 + 0.1 * rnd(k), "beta": 0.1 * rnd(k)}
-                for epi in fa.GEMM_EPILOGUES:
-                    ln = epi in ("qkv", "gelu")
-                    ref = fa.gemm_plain(p["a"], p["w"], p["bias"], epi,
-                                        resid=p["resid"],
-                                        ln_scale=p["gamma"] if ln else None,
-                                        ln_bias=p["beta"] if ln else None)
-                    check(f"epilogue {epi}", f"M={m},K={k},N={n}",
-                          _gemm_direct(lib, p, epi), ref)
-        for b, n in GEMM_SWEEP_BLOCKS:
-            what = f"B={b},N={n}"
-            p = _block_inputs(b, n, width, False, torch.bfloat16, device,
-                              seed=1100 + n)
-            k1 = _block_args("fused_ln_attention_block", p, heads)
-            check("K1 (qkv, resid_attn)", what, fa.fused_ln_attention_block(*k1),
-                  fa.ln_attention_block_plain(*k1))
-            k8 = _block_args("fused_attention_block", p, heads)
-            check("K8 (bias, bias)", what, fa.fused_attention_block(*k8),
-                  fa.attention_block_plain(*k8))
-            p = _block_inputs(b, n, mlp_width, False, torch.bfloat16, device,
-                              seed=1200 + n)
-            k2 = _block_args("fused_ln_mlp", p, heads)
-            check("K2 (gelu, resid_mlp)", what, fa.fused_ln_mlp(*k2),
-                  fa.ln_mlp_plain(*k2))
-    for group, ((max_abs, max_rel), what) in worst.items():
+                    p = {"a": rnd(m, k).to(dtype),
+                         "w": rnd(k, n, scale=k**-0.5).to(dtype),
+                         "bias": 0.1 * rnd(n), "resid": rnd(m, n).to(dtype),
+                         "gamma": 1 + 0.1 * rnd(k), "beta": 0.1 * rnd(k)}
+                    for epi in fa.GEMM_EPILOGUES:
+                        ln = epi in ("qkv", "gelu")
+                        ref = fa.gemm_plain(p["a"], p["w"], p["bias"], epi,
+                                            resid=p["resid"],
+                                            ln_scale=p["gamma"] if ln else None,
+                                            ln_bias=p["beta"] if ln else None)
+                        for shape_name, tile in shapes.items():
+                            check(f"{dtype_name} epilogue {epi}{shape_name}",
+                                  dtype_name, f"M={m},K={k},N={n}",
+                                  _gemm_direct(lib, p, epi, tile), ref)
+            for b, n in GEMM_SWEEP_BLOCKS:
+                what = f"B={b},N={n}"
+                p = _block_inputs(b, n, width, False, dtype, device, seed=1100 + n)
+                k1 = _block_args("fused_ln_attention_block", p, heads)
+                check(f"{dtype_name} K1 (qkv, resid_attn)", dtype_name, what,
+                      fa.fused_ln_attention_block(*k1),
+                      fa.ln_attention_block_plain(*k1))
+                k8 = _block_args("fused_attention_block", p, heads)
+                check(f"{dtype_name} K8 (bias, bias)", dtype_name, what,
+                      fa.fused_attention_block(*k8), fa.attention_block_plain(*k8))
+                p = _block_inputs(b, n, mlp_width, False, dtype, device,
+                                  seed=1200 + n)
+                k2 = _block_args("fused_ln_mlp", p, heads)
+                check(f"{dtype_name} K2 (gelu, resid_mlp)", dtype_name, what,
+                      fa.fused_ln_mlp(*k2), fa.ln_mlp_plain(*k2))
+    for group, ((max_abs, max_rel), what, dtype_name) in worst.items():
+        atol, rtol = TOLERANCES[dtype_name]
         log(f"[gemm sweep] {group}: largest error at {what}: max_abs_err "
             f"{max_abs:.3e} max_rel_err {max_rel:.3e} (tol atol {atol:.3e} "
             f"rtol {rtol:.3e})")
     log(f"[gemm sweep] {len(worst)} groups within tolerance")
+    phase_gemm_tiles(device, lib, tiles)
+
+
+def phase_gemm_tiles(device, lib, tiles):
+    """Each fp32 forward product of GEMM_TILE_CELLS timed with each tile
+    shape, beside the one ``_tile_plan`` picks (A read as is: the LN pass is
+    not timed)."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    names = {v: k for k, v in tiles.items()}
+    sms = fa._sm_count(device.index or 0)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    g = torch.Generator(device=device).manual_seed(1300)
+    with torch.no_grad():
+        for shape, m, product, n, k, epi in GEMM_TILE_CELLS:
+            a = torch.randn(m, k, device=device, generator=g)
+            w = torch.randn(k, n, device=device, generator=g) * k**-0.5
+            bias = 0.1 * torch.randn(n, device=device, generator=g)
+            resid = (torch.randn(m, n, device=device, generator=g)
+                     if epi.startswith("resid") else None)
+            out = torch.empty(m, n, device=device)
+            code = fa.GEMM_EPILOGUES.index(epi)
+            times = {name: time_ms(lambda: fa._gemm(lib, a, w, bias, out, code, stream,
+                                                    resid=resid, tile=tile))
+                     for name, tile in tiles.items()}
+            flops = 2 * m * n * k
+            log(f"[gemm tiles] {product} {shape} M={m} N={n} K={k} fp32: " + ", ".join(
+                f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+                for name, ms in times.items()) + f"; plan {names[fa._tile_plan(m, n, sms)]}")
+            del a, w, bias, resid, out
+    torch.cuda.empty_cache()
 
 
 def _gemm_bwd_operands(op, m, n, k, dtype, device, seed):
@@ -818,8 +898,7 @@ def phase_gemm_bwd_sweep(device):
     from clip_gp_tpu_torch.ops import flash_attention as fa
 
     lib = _build.library()
-    tiles = {"128x128": fa._TILE_128, "128x64": fa._TILE_128X64,
-             "64x64": fa._TILE_64}
+    tiles = _tile_names()
     worst = {}  # group -> (max_rel, max_abs, where)
     for op in fa.GEMM_BWD_OPS:
         for dtype_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -890,11 +969,11 @@ def _short_kernel_name(name: str) -> str:
 
 def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
     """``torch.profiler`` (CUDA activity) over ``calls`` calls each of K1,
-    K2, K5 and K8 at ViT-B/16 B=512 in bf16, of K1 in fp32 and of K3 and K4
-    (dx only, and with every gradient) in fp32 at the trimmed text tower's
-    CoCoOp chunk, after a warm-up call: prints the device time of each CUDA
-    kernel by name, per call, with the number of launches the trace holds of
-    it."""
+    K2 and K8 at ViT-B/16 B=512 in bf16 and fp32, of K5 in bf16 and of K3
+    and K4 (dx only, and with every gradient) in fp32 at the trimmed text
+    tower's CoCoOp chunk, after a warm-up call: prints the device time of
+    each CUDA kernel by name, per call, with the number of launches the trace
+    holds of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -933,11 +1012,11 @@ def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
             p = _block_inputs(b, n, d, False, dtype, device, seed=900)
             args = _block_args("fused_ln_attention_block", p, heads)
             profiled(f"K1 {dtype_name}", lambda: fa.fused_ln_attention_block(*args))
+            args = _block_args("fused_ln_mlp", p, heads)
+            profiled(f"K2 {dtype_name}", lambda: fa.fused_ln_mlp(*args))
+            args = _block_args("fused_attention_block", p, heads)
+            profiled(f"K8 {dtype_name}", lambda: fa.fused_attention_block(*args))
             if dtype_name == "bf16":
-                args = _block_args("fused_ln_mlp", p, heads)
-                profiled("K2 bf16", lambda: fa.fused_ln_mlp(*args))
-                args = _block_args("fused_attention_block", p, heads)
-                profiled("K8 bf16", lambda: fa.fused_attention_block(*args))
                 del p, args
                 p = _q8_block_inputs(b, n, d, dtype_name, device, seed=900)
                 args = _block_args("q8_ln_attention_block", p, heads)

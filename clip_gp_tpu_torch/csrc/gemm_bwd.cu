@@ -50,16 +50,11 @@ using namespace cgt;
 namespace {
 
 enum Op { kNNBias = 0, kNT = 1, kNTGeluBwd = 2, kTN = 3 };
-enum Tile { kTile128 = 0, kTile64 = 1, kTile128x64 = 2 };
-
-// 4 warps a block in each: 64x64, 32x32 or 64x32 accumulators a warp
-using Tiles128 = GemmTiles<128, 128, 2, 2, 2>;
-using Tiles64 = GemmTiles<64, 64, 2, 2, 4>;
-using Tiles128x64 = GemmTiles<128, 64, 2, 2, 3>;
 
 // LN(x) in fp32 and its row statistics, one warp a row: the two-pass fp32
 // mean and variance (eps 1e-5) of ln_gemm.cu's ln_stats_kernel, then
-// ((x - mean)·rstd)·γ + β
+// ((x - mean)·rstd)·γ + β. K3 and K4 read both; the fp32 K1 and K2 read
+// LN(x) as the A of their qkv and c_fc products.
 template <typename T>
 __global__ void __launch_bounds__(256)
     ln_f32_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -85,26 +80,26 @@ __global__ void __launch_bounds__(256)
 }
 
 // T: the working type of the io operand
-template <class Tl, typename T>
-int dispatch(int op, const void* a, const void* b, const void* bias,
+template <typename T>
+int dispatch(int op, int tile, const void* a, const void* b, const void* bias,
              const void* aux, void* out, void* act, int M, int N, int K,
              int splits, cudaStream_t s) {
   switch (op) {
     case kNNBias:  // A = LN(x), fp32
       if constexpr (!std::is_same<T, float>::value) return (int)cudaErrorInvalidValue;
-      return act ? launch_gemm_tf32<Tl, false, false, float, float, kGemmEpiBiasGelu>(
-                       a, b, bias, aux, out, act, M, N, K, splits, s)
-                 : launch_gemm_tf32<Tl, false, false, float, float, kGemmEpiBias>(
-                       a, b, bias, aux, out, act, M, N, K, splits, s);
+      return act ? launch_gemm_tf32_tile<false, false, float, float, kGemmEpiBiasGelu>(
+                       tile, a, b, bias, aux, out, act, M, N, K, splits, s)
+                 : launch_gemm_tf32_tile<false, false, float, float, kGemmEpiBias>(
+                       tile, a, b, bias, aux, out, act, M, N, K, splits, s);
     case kNT:
-      return launch_gemm_tf32<Tl, false, true, T, float, kGemmEpiNone>(
-          a, b, bias, aux, out, act, M, N, K, splits, s);
+      return launch_gemm_tf32_tile<false, true, T, float, kGemmEpiNone>(
+          tile, a, b, bias, aux, out, act, M, N, K, splits, s);
     case kNTGeluBwd:
-      return launch_gemm_tf32<Tl, false, true, T, float, kGemmEpiGeluBwd>(
-          a, b, bias, aux, out, act, M, N, K, splits, s);
+      return launch_gemm_tf32_tile<false, true, T, float, kGemmEpiGeluBwd>(
+          tile, a, b, bias, aux, out, act, M, N, K, splits, s);
     case kTN:
-      return launch_gemm_tf32<Tl, true, false, float, T, kGemmEpiNone>(
-          a, b, bias, aux, out, act, M, N, K, splits, s);
+      return launch_gemm_tf32_tile<true, false, float, T, kGemmEpiNone>(
+          tile, a, b, bias, aux, out, act, M, N, K, splits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -122,7 +117,8 @@ bool layout_ok(int op, int N, int K, int splits, bool bf16, bool act) {
 
 // out holds `splits` parts of [M, N] (one unless an epilogue-free product
 // splits K); bias is read by kNNBias only, aux by kNTGeluBwd only; act
-// (kNNBias only, may be null) receives QuickGELU(out); tile: a Tile.
+// (kNNBias only, may be null) receives QuickGELU(out); tile: a GemmTile
+// (gemm_tf32.cuh).
 // Returns cudaErrorInvalidValue for a shape the layout rules of
 // gemm_tf32.cuh refuse (the K3/K4 wrappers' checks on D and the hidden
 // width keep every call of theirs inside them).
@@ -135,27 +131,11 @@ extern "C" int cgt_gemm_bwd(const void* a, const void* b, const void* bias,
       !layout_ok(op, N, K, splits, dtype == kBF16, act != nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool bf16 = dtype == kBF16;
-  switch (tile) {
-    case kTile128:
-      return bf16 ? dispatch<Tiles128, __nv_bfloat16>(op, a, b, bias, aux, out,
-                                                      act, M, N, K, splits, s)
-                  : dispatch<Tiles128, float>(op, a, b, bias, aux, out, act, M,
-                                              N, K, splits, s);
-    case kTile64:
-      return bf16 ? dispatch<Tiles64, __nv_bfloat16>(op, a, b, bias, aux, out,
-                                                     act, M, N, K, splits, s)
-                  : dispatch<Tiles64, float>(op, a, b, bias, aux, out, act, M,
-                                             N, K, splits, s);
-    case kTile128x64:
-      return bf16 ? dispatch<Tiles128x64, __nv_bfloat16>(op, a, b, bias, aux,
-                                                         out, act, M, N, K,
-                                                         splits, s)
-                  : dispatch<Tiles128x64, float>(op, a, b, bias, aux, out, act,
-                                                 M, N, K, splits, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dtype == kBF16
+             ? dispatch<__nv_bfloat16>(op, tile, a, b, bias, aux, out, act, M,
+                                       N, K, splits, s)
+             : dispatch<float>(op, tile, a, b, bias, aux, out, act, M, N, K,
+                               splits, s);
 }
 
 // h [rows, cols] fp32 = LN(x) and stats [rows] (mean, rstd) for x fp32 or

@@ -1,7 +1,8 @@
 // The fp32 GEMM core on Hopper's tensor cores: out[M,N] = epilogue(A·B) at
 // about fp32 accuracy as 3xTF32 on mma.sync.m16n8k8, fed by a cp.async
-// ring. gemm_bwd.cu (the products of K3 and K4) runs every product through
-// it; it is written so that the fp32 forward GEMM of ln_gemm.cu can too.
+// ring. Every fp32 matrix product of the port outside the attention cores
+// runs through it: gemm_bwd.cu's (the products of K3 and K4) and the fp32
+// products of ln_gemm.cu (K1, K2 and K8).
 //
 // Template parameters:
 // - Tiles: the block's output tile (BM x BN), its warps (WARPS_M x WARPS_N,
@@ -15,16 +16,30 @@
 //   fragment is loaded; a bf16 value is exact in TF32, so it needs no lo
 //   part and the pass that would multiply that lo (exact zeros) is skipped.
 // - EPI: what happens to the fp32 sum before its one store: nothing, + bias
-//   [N], + bias with QuickGELU(out) written as a second output, or
-//   × QuickGELU'(aux[M,N]).
+//   [N], + bias with QuickGELU(out) written as a second output,
+//   × QuickGELU'(aux[M,N]) (the backward products); QuickGELU(acc + bias)
+//   written alone, (r + acc) + bias or r + (acc + bias) with the residual r
+//   = aux[M,N] (the forward products, each sum in the order of the Pallas
+//   kernel).
 //
 // The arithmetic: each fp32 operand splits into hi = tf32(x) (cvt.rna) and
 // lo = tf32(x - hi) as its fragment is loaded from shared memory, and each
-// k-step sums lo·hi + hi·lo + hi·hi into fp32 accumulators, the small terms
-// first, as the attention core does (tests/test_torch_gemm_bwd_numerics.py
-// emulates the operands' rounding bit for bit and holds K3's and K4's
-// gradients so computed to the backward tolerance, which one TF32 pass
-// misses).
+// 8-deep k-step sums lo·hi + hi·lo + hi·hi, the small terms first, as the
+// attention core does (tests/test_torch_gemm_bwd_numerics.py and
+// tests/test_torch_gemm_fwd_numerics.py emulate the operands' rounding bit
+// for bit and hold K3's and K4's gradients and the fp32 K1, K2 and K8 so
+// computed to their tolerances, which one TF32 pass misses). The three
+// products of a k-step are summed on the tensor cores from zero, and that
+// sum is added to the fp32 accumulator by an ordinary fp32 add, rounding to
+// nearest. Chaining every k-step into the accumulator on the tensor cores
+// instead errs about ten times more on an H100, and the error grows with K:
+// the tensor cores' sums keep fewer bits than a rounded fp32 add, so each
+// mma.sync that takes the accumulator as its addend can lose up to a unit
+// in its last place, some 3K/8 times over a product of depth K. With
+// ViT-B/16's c_proj (K = 3,072) that put K2's fp32 output 1.1e-4 from the
+// plain version's, against 1.2e-5 with each k-step summed from zero, which
+// keeps every fp32 cell of chip_smoke.py under a tenth of its tolerance
+// for about 15% more time.
 //
 // The pipeline: k-tiles of depth BK = 16 stream through a ring of STAGES =
 // 4 shared-memory stages, filled by 16-byte cp.async whose src-size form
@@ -69,7 +84,13 @@ enum GemmEpi {
   kGemmEpiBias = 1,
   kGemmEpiBiasGelu = 2,
   kGemmEpiGeluBwd = 3,
+  kGemmEpiGelu = 4,       // QuickGELU(acc + b), the activation alone
+  kGemmEpiResidAttn = 5,  // (r + acc) + b
+  kGemmEpiResidMlp = 6,   // r + (acc + b)
 };
+
+template <int EPI>
+constexpr bool kGemmEpiAddsBias = EPI != kGemmEpiNone && EPI != kGemmEpiGeluBwd;
 
 template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int MIN_BLOCKS_>
 struct GemmTiles {
@@ -81,6 +102,16 @@ struct GemmTiles {
   static constexpr int MT = WM / 16, NT = WN / 8;              // its mma tiles
   static_assert(WM % 16 == 0 && WN % 8 == 0, "warp block of whole mma tiles");
 };
+
+// The three tile shapes the wrappers pick from (the ``tile`` argument of
+// cgt_gemm and cgt_gemm_bwd), each a block of 4 warps: 128x128 (64x64
+// accumulators a warp, two blocks an SM), 64x64 (32x32, four) and 128x64
+// (64x32, three), so that an output of few 128x128 tiles still fills the
+// card.
+enum GemmTile { kTile128 = 0, kTile64 = 1, kTile128x64 = 2 };
+using Tiles128 = GemmTiles<128, 128, 2, 2, 2>;
+using Tiles64 = GemmTiles<64, 64, 2, 2, 4>;
+using Tiles128x64 = GemmTiles<128, 64, 2, 2, 3>;
 
 __device__ __forceinline__ float quick_gelu_sigmoid(float h) {
   return 1.f / (1.f + expf(-1.702f * h));
@@ -253,18 +284,28 @@ __global__ void __launch_bounds__(Tl::THREADS, Tl::MIN_BLOCKS)
         split<A_LO>(v1.x, ah[1], al[1]);  // (row g + 8, slot t)
         split<A_LO>(v0.y, ah[2], al[2]);  // (row g, slot t + 4)
         split<A_LO>(v1.y, ah[3], al[3]);  // (row g + 8, slot t + 4)
-        // each accumulator sums lo·hi, hi·lo, then hi·hi; the NT independent
-        // accumulators of a pass go between two dependent products
+        // the k-step's lo·hi, hi·lo, then hi·hi, summed on the tensor cores
+        // from zero (the NT independent sums of a pass go between two
+        // dependent products), then added to the accumulators in fp32
+        float d[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
         if constexpr (A_LO) {
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], al, bh[j][0], bh[j][1]);
+          for (int j = 0; j < NT; ++j) mma_tf32(d[j], al, bh[j][0], bh[j][1]);
         }
         if constexpr (B_LO) {
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah, bl[j][0], bl[j][1]);
+          for (int j = 0; j < NT; ++j) mma_tf32(d[j], ah, bl[j][0], bl[j][1]);
         }
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
+        for (int j = 0; j < NT; ++j) {
+          mma_tf32(d[j], ah, bh[j][0], bh[j][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[j][e];
+        }
       }
     }
     cp_async_wait<STAGES - 2>();  // this thread's chunks of tile kt + 1
@@ -286,15 +327,30 @@ __global__ void __launch_bounds__(Tl::THREADS, Tl::MIN_BLOCKS)
         if (n >= N) continue;
         const size_t idx = (size_t)m * N + n;
         float2 v = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        if constexpr (EPI == kGemmEpiBias || EPI == kGemmEpiBiasGelu) {
+        float2 r = make_float2(0.f, 0.f);  // the residual
+        if constexpr (EPI == kGemmEpiResidAttn || EPI == kGemmEpiResidMlp)
+          r = *reinterpret_cast<const float2*>(aux + idx);
+        if constexpr (EPI == kGemmEpiResidAttn) {
+          v.x += r.x;
+          v.y += r.y;
+        }
+        if constexpr (kGemmEpiAddsBias<EPI>) {
           const float2 b = *reinterpret_cast<const float2*>(bias + n);
           v.x += b.x;
           v.y += b.y;
+        }
+        if constexpr (EPI == kGemmEpiResidMlp) {
+          v.x = r.x + v.x;
+          v.y = r.y + v.y;
         }
         if constexpr (EPI == kGemmEpiBiasGelu) {
           *reinterpret_cast<float2*>(out2 + idx) =
               make_float2(v.x * quick_gelu_sigmoid(v.x),
                           v.y * quick_gelu_sigmoid(v.y));
+        }
+        if constexpr (EPI == kGemmEpiGelu) {
+          v.x *= quick_gelu_sigmoid(v.x);
+          v.y *= quick_gelu_sigmoid(v.y);
         }
         if constexpr (EPI == kGemmEpiGeluBwd) {
           // d/dh [h·s(1.702h)] = s + 1.702·h·s·(1 - s), as the Pallas kernel
@@ -349,6 +405,27 @@ int launch_gemm_tf32(const void* a, const void* b, const void* bias,
       (const TA*)a, (const TB*)b, (const float*)bias, (const float*)aux,
       (float*)out, (float*)out2, M, N, K, k_chunk, M % 4 == 0);
   return (int)cudaGetLastError();
+}
+
+// launch_gemm_tf32 with the tile shape of the GemmTile ``tile``
+template <bool TRANS_A, bool TRANS_B, typename TA, typename TB, int EPI>
+int launch_gemm_tf32_tile(int tile, const void* a, const void* b,
+                          const void* bias, const void* aux, void* out,
+                          void* out2, int M, int N, int K, int splits,
+                          cudaStream_t s) {
+  switch (tile) {
+    case kTile128:
+      return launch_gemm_tf32<Tiles128, TRANS_A, TRANS_B, TA, TB, EPI>(
+          a, b, bias, aux, out, out2, M, N, K, splits, s);
+    case kTile64:
+      return launch_gemm_tf32<Tiles64, TRANS_A, TRANS_B, TA, TB, EPI>(
+          a, b, bias, aux, out, out2, M, N, K, splits, s);
+    case kTile128x64:
+      return launch_gemm_tf32<Tiles128x64, TRANS_A, TRANS_B, TA, TB, EPI>(
+          a, b, bias, aux, out, out2, M, N, K, splits, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace cgt

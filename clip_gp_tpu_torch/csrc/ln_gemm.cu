@@ -1,39 +1,53 @@
-// LN-prologue GEMM with a fused epilogue: the four matrix products inside
-// the Pallas kernels _fused_ln_block_kernel (K1) and _fused_mlp_kernel (K2)
-// of clip_gp_tpu/ops/flash_attention.py, the two of _fused_block_kernel (K8)
-// of the same file, plus the LayerNorm row statistics they need.
+// The GEMM with a fused epilogue of the Pallas kernels _fused_ln_block_kernel
+// (K1) and _fused_mlp_kernel (K2) of clip_gp_tpu/ops/flash_attention.py, and
+// of _fused_block_kernel (K8) of the same file: their four matrix products,
+// plus the LayerNorm pass that the bf16 products read.
 //
-//   out[M,N] = epilogue( prologue(A)[M,K] @ W[K,N] )
+//   out[M,N] = epilogue( A[M,K] @ W[K,N] )
 //
-// prologue: LayerNorm of each A row (fp32 mean/rstd from ln_stats_kernel,
-//           fp32 gamma/beta), rounded to the working type as the Pallas
-//           kernel rounds ``h.astype(x.dtype)``; used by the qkv projection
-//           (K1) and c_fc (K2), inside the fp32 GEMM and as a pass of its
-//           own before the bf16 one. The out-projection and c_proj read A
-//           as is.
+// A is read as is. The qkv projection (K1) and c_fc (K2) take A = LN(x),
+// written by a pass of its own and rounded to the working type as the Pallas
+// kernel rounds ``h.astype(x.dtype)``: in bf16 ln_stats_kernel then
+// ln_apply_kernel below, in fp32 gemm_bwd.cu's ln_f32_kernel, the one pass
+// that K3 and K4 run (((x - mean)·rstd)·γ + β, the same expression). The
+// out-projection and c_proj read A as the block hands it over.
 // epilogue: K1 qkv:      T(T(acc) + b)       (the kernel rounds the product
 //                                             before adding b_qkv)
-//           K8 qkv and out-proj: T(T(acc) + b), the same without the LN
-//                                prologue (b_out is added after the sum is
-//                                rounded, in T: the wrapper passes b rounded)
+//           K8 qkv and out-proj: T(T(acc) + b), the same (b_out is added
+//                                after the sum is rounded, in T: the wrapper
+//                                passes b rounded)
 //           K2 c_fc:     T(gelu(acc + b))    (QuickGELU in fp32)
 //           K1 out-proj: T((r + acc) + b)    (residual + bias in fp32)
 //           K2 c_proj:   T(r + (acc + b))
 //
 // The Pallas kernels it serves: K1 _fused_ln_block_kernel
-// (flash_attention.py:845: qkv with the LN prologue, epilogue 0, and the
-// out-projection, 2), K2 _fused_mlp_kernel (:329: c_fc with the LN prologue,
-// 1, and c_proj, 3) and K8 _fused_block_kernel (:174: qkv and out-projection,
-// both 4).
+// (flash_attention.py:845: qkv, epilogue 0, and the out-projection, 2), K2
+// _fused_mlp_kernel (:329: c_fc, 1, and c_proj, 3) and K8 _fused_block_kernel
+// (:174: qkv and out-projection, both 4).
 //
 // What bounds it on an H100: operations. K1's qkv product at ViT-B/16 batch
-// 512 (M = 100,864 rows, K = 768, N = 2,304) is 357 GFLOP for about 624 MB
-// of bf16 moved (x read, qkv written), some 570 FLOPs per byte, above the
-// card's ridge of about 295 FLOPs per byte for bf16 tensor cores (20 for the
-// fp32 CUDA cores); K2's c_fc and c_proj and the out-projections lie higher
-// or near it. So the design keeps the tensor cores fed:
-// - fp32 runs on the CUDA cores (8x8 outer products per thread, 128x128
-//   tiles), unchanged since the first version.
+// 512 (M = 100,864 rows, K = 768, N = 2,304) is 357 GFLOP. In bf16 it moves
+// about 624 MB (x read, qkv written), some 570 FLOPs per byte, above the
+// card's ridge of about 295 for bf16 tensor cores. In fp32 it moves 1.25 GB,
+// or 1.87 GB with the LN pass's write and read of LN(x): 190 to 290 FLOPs
+// per byte, above the ridge of 3xTF32 on the tensor cores (165 TFLOP/s of
+// fp32 products over 3.35 TB/s, about 50). K2's c_fc and c_proj and the
+// out-projections lie higher or near it. So the design keeps the tensor
+// cores fed:
+// - fp32 runs the 3xTF32 mma.sync core of gemm_tf32.cuh, as K3's and K4's
+//   products do: its 4-stage 16-byte cp.async ring of 16-deep k-tiles, the
+//   hi/lo split of each fragment as it leaves shared memory with lo·hi +
+//   hi·lo + hi·hi summed in that order for each 8-deep k-step and added to
+//   the fp32 accumulators rounding to nearest (gemm_tf32.cuh says why the
+//   tensor cores do not chain the accumulators), and one of three tile shapes
+//   (128x128, 128x64, 64x64) that the wrapper picks per product from the
+//   card's SM count. The epilogues run on the accumulators (QuickGELU
+//   writes the activation alone; the residual is an fp32 [M,N] read through
+//   the core's aux pointer). Three TF32 passes, not one: at K = 768 to
+//   3,072 one pass puts K1, K2 and K8 4.5 to 10.5 times past the fp32
+//   tolerance (1e-4 + 1e-4·|plain|), and three stay 50 to 130 times inside
+//   it (tests/test_torch_gemm_fwd_numerics.py emulates both in the plain
+//   versions at ViT-B/16's widths).
 // - bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulators) on 128x128 output
 //   tiles, 4 warps each holding a 64x64 block of accumulators in registers
 //   (128 floats a thread), so each operand fragment an ldmatrix brings feeds
@@ -47,32 +61,32 @@
 //   .col operand, read by ldmatrix.x4.trans. 105 KB of ring a block
 //   (dynamic shared memory) and at most 255 registers a thread: two blocks
 //   an SM.
-// - the LN prologue (the qkv and c_fc products) runs as a pass of its own
-//   for bf16 (ln_apply_kernel: h = LN(x) rounded once to bf16, 2 x T x D
-//   x 2 bytes, 0.10 ms at ViT-B/16 batch 512 on an H100), and the GEMM reads
-//   h as is. Normalising the landed stage in shared memory inside the GEMM
-//   was measured first: the qkv product took 1.80 ms with it against 1.12
+// - the LN as a pass of its own, in both types (for bf16 ln_apply_kernel: h
+//   = LN(x) rounded once to bf16, 2 x T x D x 2 bytes, 0.10 ms at ViT-B/16
+//   batch 512 on an H100), because cp.async cannot transform what it copies
+//   and normalising the landed stage in shared memory inside the GEMM was
+//   measured slower: the bf16 qkv product took 1.80 ms with it against 1.12
 //   without, c_fc 2.97 against 2.00, because each of the N / 128 column
-//   blocks (18 for qkv, 24 for c_fc) normalises the same rows again;
-//   normalising the fragments after ldmatrix repeats that work once more per
-//   warp. The rounding point is unchanged: LN in fp32, rounded once to bf16
-//   before the product. The fp32 kernel keeps its prologue.
-// - the epilogue: after the last k-tile the ring becomes staging; each warp
-//   writes its fp32 accumulators there, then each lane finishes 8 adjacent
-//   columns of a row (bias, residual and QuickGELU per element as
+//   blocks (18 for qkv, 24 for c_fc) normalises the same rows again. The
+//   rounding point is unchanged: LN in fp32, rounded once to T before the
+//   product.
+// - the bf16 epilogue: after the last k-tile the ring becomes staging; each
+//   warp writes its fp32 accumulators there, then each lane finishes 8
+//   adjacent columns of a row (bias, residual and QuickGELU per element as
 //   apply_epilogue says, in fp32) with 16-byte reads of the residual and
 //   16-byte writes of the output.
-// - no split-K and no atomics: every output element is summed by one thread
-//   in a fixed k order, so two calls agree bit for bit.
+// - no split-K and no atomics in either type: every output element is
+//   summed by one thread in a fixed k order, so two calls agree bit for bit.
 // Left for wgmma and TMA: mma.sync reaches about two thirds of the card's
-// bf16 peak at best and every operand passes through registers by ldmatrix,
-// which makes shared-memory bandwidth the next wall; warpgroup products
-// reading both operands from shared memory, TMA copies and a persistent
-// grid whose epilogue overlaps the next tile's products are the next step
-// (c_fc, whose epilogue runs QuickGELU, takes 2.00 ms against c_proj's 1.51
-// for the same FLOPs at batch 512), then keeping the qkv/hidden
-// intermediates on chip.
+// bf16 peak at best and every operand passes through registers, which makes
+// shared-memory bandwidth the next wall; warpgroup products reading both
+// operands from shared memory, TMA copies and a persistent grid whose
+// epilogue overlaps the next tile's products are the next step (c_fc, whose
+// epilogue runs QuickGELU, takes 2.00 ms against c_proj's 1.51 for the same
+// FLOPs at batch 512 in bf16), then keeping the qkv/hidden intermediates on
+// chip.
 #include "common.cuh"
+#include "gemm_tf32.cuh"
 #include "mma.cuh"
 
 using namespace cgt;
@@ -86,10 +100,6 @@ enum Epilogue {
   kEpiResidMlp = 3,
   kEpiBias = 4,
 };
-
-// the qkv and c_fc products normalise their input rows
-template <int EPI>
-constexpr bool kHasLn = (EPI == kEpiQkv || EPI == kEpiGelu);
 
 template <int EPI, typename T>
 __device__ __forceinline__ T apply_epilogue(float acc, float b, const T* resid,
@@ -106,16 +116,15 @@ __device__ __forceinline__ T apply_epilogue(float acc, float b, const T* resid,
   }
 }
 
-// one warp per row: two-pass fp32 mean and variance (eps 1e-5), as the
-// Pallas kernel computes them
-template <typename T>
+// one warp per row of a bf16 x: two-pass fp32 mean and variance (eps 1e-5),
+// as the Pallas kernel computes them
 __global__ void __launch_bounds__(256)
-    ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats,
-                    int rows, int cols) {
+    ln_stats_kernel(const __nv_bfloat16* __restrict__ x,
+                    float2* __restrict__ stats, int rows, int cols) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform across the warp
-  const T* xr = x + (size_t)row * cols;
+  const __nv_bfloat16* xr = x + (size_t)row * cols;
   float s = 0.f;
   for (int c = lane; c < cols; c += 32) s += to_f32(xr[c]);
   const float mean = warp_sum(s) / (float)cols;
@@ -156,84 +165,6 @@ __global__ void __launch_bounds__(256)
     e[u] = __float2bfloat16_rn((__bfloat162float(e[u]) - st.x) * st.y * gv[u] +
                                bv[u]);
   *reinterpret_cast<uint4*>(h + off) = packed;
-}
-
-// ---------------------------------------------------------------- fp32 ----
-constexpr int F_BM = 128, F_BN = 128, F_BK = 8;
-
-template <int EPI>
-__global__ void __launch_bounds__(256)
-    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ resid,
-                    const float2* __restrict__ stats,
-                    const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float* __restrict__ out,
-                    int M, int N, int K) {
-  __shared__ __align__(16) float As[F_BK][F_BM + 4];  // A tile, transposed
-  __shared__ __align__(16) float Bs[F_BK][F_BN];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
-  const int tx = tid & 15, ty = tid >> 4;  // thread owns rows ty*4+{0..3},
-                                           // 64+ty*4+{0..3}; same for cols
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5, b_col = (tid & 31) * 4;
-  const int gm = m0 + a_row;
-  float2 st = make_float2(0.f, 1.f);
-  if (kHasLn<EPI> && gm < M) st = stats[gm];
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + a_k + i;
-      float v = 0.f;
-      if (gm < M && k < K) {
-        v = A[(size_t)gm * K + k];
-        if (kHasLn<EPI>) v = (v - st.x) * st.y * gamma[k] + beta[k];
-      }
-      As[a_k + i][a_row] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + b_k, n = n0 + b_col + i;
-      Bs[b_k][b_col + i] = (k < K && n < N) ? W[(size_t)k * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) {
-        const size_t idx = (size_t)m * N + n;
-        out[idx] = apply_epilogue<EPI, float>(acc[i][j], bias[n], resid, idx);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- bf16 ----
@@ -421,50 +352,49 @@ int opt_in_bf16_smem() {
   return 0;
 }
 
+// ---------------------------------------------------------------- fp32 ----
+// the core's epilogue for each of ours: in fp32 the qkv and bias epilogues'
+// rounding to T is the identity
+constexpr int f32_epilogue(int epi) {
+  return epi == kEpiGelu        ? kGemmEpiGelu
+         : epi == kEpiResidAttn ? kGemmEpiResidAttn
+         : epi == kEpiResidMlp  ? kGemmEpiResidMlp
+                                : kGemmEpiBias;
+}
+
 template <int EPI>
 int launch_gemm(const void* a, const void* w, const void* bias,
-                const void* resid, const void* stats, const void* gamma,
-                const void* beta, void* out, int M, int N, int K, int dtype,
-                cudaStream_t s) {
+                const void* resid, void* out, int M, int N, int K, int dtype,
+                int tile, cudaStream_t s) {
   if (dtype == kF32) {
-    const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
-    gemm_f32_kernel<EPI><<<grid, 256, 0, s>>>(
-        (const float*)a, (const float*)w, (const float*)bias,
-        (const float*)resid, (const float2*)stats, (const float*)gamma,
-        (const float*)beta, (float*)out, M, N, K);
-  } else if (dtype == kBF16) {
-    const int err = opt_in_bf16_smem<EPI>();
-    if (err != 0) return err;
-    const dim3 grid((N + H_BN - 1) / H_BN, (M + H_BM - 1) / H_BM);
-    gemm_bf16_kernel<EPI><<<grid, H_THREADS, H_SMEM_BYTES, s>>>(
-        (const __nv_bfloat16*)a, (const __nv_bfloat16*)w, (const float*)bias,
-        (const __nv_bfloat16*)resid, (__nv_bfloat16*)out, M, N, K);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    // the core's layout rules for A [M,K] and W [K,N] in fp32
+    if (N % 4 || K % 4) return (int)cudaErrorInvalidValue;
+    return launch_gemm_tf32_tile<false, false, float, float, f32_epilogue(EPI)>(
+        tile, a, w, bias, resid, out, nullptr, M, N, K, 1, s);
   }
+  if (dtype != kBF16 || N % 8 || K % 8) return (int)cudaErrorInvalidValue;
+  const int err = opt_in_bf16_smem<EPI>();
+  if (err != 0) return err;
+  const dim3 grid((N + H_BN - 1) / H_BN, (M + H_BM - 1) / H_BM);
+  gemm_bf16_kernel<EPI><<<grid, H_THREADS, H_SMEM_BYTES, s>>>(
+      (const __nv_bfloat16*)a, (const __nv_bfloat16*)w, (const float*)bias,
+      (const __nv_bfloat16*)resid, (__nv_bfloat16*)out, M, N, K);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// stats [rows] (mean, rstd) of a bf16 x [rows, cols], for cgt_ln_apply
 extern "C" int cgt_ln_stats(const void* x, void* stats, int rows, int cols,
-                            int dtype, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((rows + 7) / 8), block(256);
-  if (dtype == kF32) {
-    ln_stats_kernel<float><<<grid, block, 0, s>>>((const float*)x,
-                                                  (float2*)stats, rows, cols);
-  } else if (dtype == kBF16) {
-    ln_stats_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        (const __nv_bfloat16*)x, (float2*)stats, rows, cols);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+                            void* stream) {
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  ln_stats_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (float2*)stats, rows, cols);
   return (int)cudaGetLastError();
 }
 
-// the normalised bf16 activation h [rows, cols] that the bf16 GEMM's LN
-// epilogues read as A; stats from cgt_ln_stats, gamma/beta fp32
+// the normalised bf16 activation h [rows, cols] that the bf16 qkv and c_fc
+// products read as A; stats from cgt_ln_stats, gamma/beta fp32
 extern "C" int cgt_ln_apply(const void* x, const void* stats, const void* gamma,
                             const void* beta, void* h, int rows, int cols,
                             void* stream) {
@@ -477,30 +407,31 @@ extern "C" int cgt_ln_apply(const void* x, const void* stats, const void* gamma,
   return (int)cudaGetLastError();
 }
 
-// resid is read by the residual epilogues (out-proj, c_proj) only; stats,
-// gamma and beta by the fp32 kernel's LN epilogues (K1 qkv, c_fc) only (in
-// bf16 those take A normalised by cgt_ln_apply); the others may be null
+// out[M,N] = epilogue(a[M,K] @ w[K,N]) in the working type ``dtype``; bias
+// fp32 [N]; resid [M,N] in that type, read by the residual epilogues
+// (out-proj, c_proj) only, else may be null. tile: the GemmTile of the fp32
+// product (gemm_tf32.cuh); bf16 has one tile shape and ignores it. Returns
+// cudaErrorInvalidValue for a shape outside the kernels' layout rules (N and
+// K multiples of 4 in fp32, of 8 in bf16; the K1, K2 and K8 wrappers' checks
+// on D and the hidden width keep every call of theirs inside them).
 extern "C" int cgt_gemm(const void* a, const void* w, const void* bias,
-                        const void* resid, const void* stats,
-                        const void* gamma, const void* beta, void* out, int M,
-                        int N, int K, int dtype, int epilogue, void* stream) {
+                        const void* resid, void* out, int M, int N, int K,
+                        int dtype, int epilogue, int tile, void* stream) {
+  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (epilogue) {
     case kEpiQkv:
-      return launch_gemm<kEpiQkv>(a, w, bias, resid, stats, gamma, beta, out,
-                                  M, N, K, dtype, s);
+      return launch_gemm<kEpiQkv>(a, w, bias, resid, out, M, N, K, dtype, tile, s);
     case kEpiGelu:
-      return launch_gemm<kEpiGelu>(a, w, bias, resid, stats, gamma, beta, out,
-                                   M, N, K, dtype, s);
+      return launch_gemm<kEpiGelu>(a, w, bias, resid, out, M, N, K, dtype, tile, s);
     case kEpiResidAttn:
-      return launch_gemm<kEpiResidAttn>(a, w, bias, resid, stats, gamma, beta,
-                                        out, M, N, K, dtype, s);
+      return launch_gemm<kEpiResidAttn>(a, w, bias, resid, out, M, N, K, dtype,
+                                        tile, s);
     case kEpiResidMlp:
-      return launch_gemm<kEpiResidMlp>(a, w, bias, resid, stats, gamma, beta,
-                                       out, M, N, K, dtype, s);
+      return launch_gemm<kEpiResidMlp>(a, w, bias, resid, out, M, N, K, dtype,
+                                       tile, s);
     case kEpiBias:
-      return launch_gemm<kEpiBias>(a, w, bias, resid, stats, gamma, beta, out,
-                                   M, N, K, dtype, s);
+      return launch_gemm<kEpiBias>(a, w, bias, resid, out, M, N, K, dtype, tile, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

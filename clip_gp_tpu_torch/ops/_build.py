@@ -33,8 +33,8 @@ _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 # C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
-    "cgt_ln_stats": [_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p],
-    "cgt_gemm": [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p],
+    "cgt_ln_stats": [_c_void_p, _c_void_p, _c_int, _c_int, _c_void_p],
+    "cgt_gemm": [_c_void_p] * 5 + [_c_int] * 6 + [_c_void_p],
     "cgt_ln_apply": [_c_void_p] * 5 + [_c_int] * 2 + [_c_void_p],
     "cgt_attention": [_c_void_p, _c_void_p, _c_void_p] + [_c_int] * 5
     + [_c_void_p],

@@ -21,20 +21,22 @@ the two attention building blocks of the JAX package.
 
 On a CUDA tensor each wrapper launches the hand-written kernels of
 ``clip_gp_tpu_torch/csrc`` (built at first use, see ``_build.py``):
-K1 = LN statistics → LN-prologue GEMM (qkv) → attention → GEMM with
-bias + residual epilogue; K2 = LN statistics → LN-prologue GEMM with
-QuickGELU epilogue → GEMM with bias + residual epilogue; K3 and K4 = an
-fp32 LN pass (LN(x) and its statistics) → the 3xTF32 GEMMs of ``gemm_bwd.cu``
-(transposed operands; bias, QuickGELU and QuickGELU-derivative epilogues)
-→ the attention backward of ``attention_bwd.cu`` (K3) → the LN backward
-and column sums of ``ln_bwd.cu``;
-K7 = the attention core of ``attention.cu`` reading contiguous heads; K8 =
-GEMM with a bias epilogue (qkv) → K1's attention core → GEMM with a bias
-epilogue. In this version the qkv and hidden intermediates pass through
-device memory. On a CPU tensor the wrapper runs the plain PyTorch version
-beside it (``ln_attention_block_plain``, ``ln_mlp_plain``,
-``ln_attn_bwd_plain``, ``ln_mlp_bwd_plain``, ``attention_plain``,
-``attention_block_plain``), which rounds where the Pallas kernel rounds.
+K1 = an LN pass → GEMM (qkv) → attention → GEMM with bias + residual
+epilogue; K2 = an LN pass → GEMM with QuickGELU epilogue → GEMM with bias +
+residual epilogue (the GEMMs of ``ln_gemm.cu``: bf16 on its own
+``mma.sync`` kernel, fp32 on the 3xTF32 core of ``gemm_tf32.cuh``); K3 and
+K4 = an fp32 LN pass (LN(x) and its statistics) → the 3xTF32 GEMMs of
+``gemm_bwd.cu`` on the same core (transposed operands; bias, QuickGELU and
+QuickGELU-derivative epilogues) → the attention backward of
+``attention_bwd.cu`` (K3) → the LN backward and column sums of
+``ln_bwd.cu``; K7 = the attention core of ``attention.cu`` reading
+contiguous heads; K8 = GEMM with a bias epilogue (qkv) → K1's attention
+core → GEMM with a bias epilogue. In this version the qkv and hidden
+intermediates pass through device memory. On a CPU tensor the wrapper runs
+the plain PyTorch version beside it (``ln_attention_block_plain``,
+``ln_mlp_plain``, ``ln_attn_bwd_plain``, ``ln_mlp_bwd_plain``,
+``attention_plain``, ``attention_block_plain``), which rounds where the
+Pallas kernel rounds.
 There is no other route: a CUDA tensor never reaches the plain version
 through a wrapper. So the JAX package's ``use_flash`` (Pallas on a TPU,
 eager math elsewhere, and its ``CLIP_GP_TPU_DISABLE_FLASH`` opt-out) has
@@ -94,12 +96,14 @@ _GEMM_BWD_PRODUCTS = {"nn_bias": 0, "nt": 1, "nt_gelu_bwd": 2, "tn": 3}
 # _ln_f32, QuickGELU(hid_pre) by K4's hid_pre product
 GEMM_BWD_OPS = {"ln_nn_bias": "nn_bias", "nt": "nt", "nt_gelu_bwd": "nt_gelu_bwd",
                 "ln_tn": "tn", "tn": "tn", "gelu_tn": "tn"}
-# the output tiles of gemm_bwd.cu (its Tile enum) -> (rows, columns, rate
-# relative to 128x128, fitted to the "[gemm_bwd tiles]" timings that
-# chip_smoke.py prints on an H100)
+# the output tiles of the 3xTF32 core (gemm_tf32.cuh's GemmTile) -> (rows,
+# columns, rate relative to 128x128, fitted to the "[gemm tiles]" and
+# "[gemm_bwd tiles]" timings that chip_smoke.py prints on an H100: over two
+# runs' 24 forward and dx products each, the picks lose 0.9% to the fastest
+# shape on average)
 _TILE_128, _TILE_64, _TILE_128X64 = range(3)
-_TILES = {_TILE_128: (128, 128, 1.0), _TILE_128X64: (128, 64, 0.9),
-          _TILE_64: (64, 64, 0.8)}
+_TILES = {_TILE_128: (128, 128, 1.0), _TILE_128X64: (128, 64, 0.93),
+          _TILE_64: (64, 64, 0.89)}
 # rows per block of the first pass of a column sum (ln_bwd.cu)
 _COLSUM_ROWS = 64
 
@@ -137,60 +141,64 @@ def _mm(a, b):
     return a.float() @ b.float()
 
 
-def attention_plain(q, k, v, mask=None):
+def attention_plain(q, k, v, mask=None, mm=_mm):
     """Plain PyTorch K7, rounding where ``_attention_kernel`` and its wrapper
     round: q [B, H, N, Dh] is scaled by 1/√Dh in its dtype (the factor
     rounded to it, as JAX casts a Python scalar), scores accumulate in fp32
     with the fp32 mask added, the fp32 softmax's probabilities round to the
-    working type, and p·v accumulates in fp32 and rounds to it."""
+    working type, and p·v accumulates in fp32 and rounds to it. ``mm``
+    computes the two products; a test passes an emulation of the card's
+    arithmetic."""
     dt = q.dtype
     q = q * torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=dt, device=q.device)
-    scores = _mm(q, k.transpose(-1, -2))
+    scores = mm(q, k.transpose(-1, -2))
     if mask is not None:
         scores = scores + mask.float()
     scores = scores - scores.amax(-1, keepdim=True)
     weights = scores.exp()
     weights = weights / weights.sum(-1, keepdim=True)
-    return _mm(weights.to(dt), v).to(dt)
+    return mm(weights.to(dt), v).to(dt)
 
 
-def _mha_plain(h, w_qkv, b_qkv, num_heads, mask):
+def _mha_plain(h, w_qkv, b_qkv, num_heads, mask, mm):
     """The heads' attention output [B, N, D] in h's dtype, as
     ``_qkv_heads_accumulate`` computes it before the out-projection: qkv =
     T(T(h·Wqkv) + T(bqkv)), then ``attention_plain`` per head."""
     dt = h.dtype
     b, n, d = h.shape
-    qkv = _mm(h, w_qkv.to(dt)).to(dt) + b_qkv.to(dt)
+    qkv = mm(h, w_qkv.to(dt)).to(dt) + b_qkv.to(dt)
     q, k, v = (
         t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
         for t in qkv.split(d, dim=-1)
     )
-    return attention_plain(q, k, v, mask).transpose(1, 2).reshape(b, n, d)
+    return attention_plain(q, k, v, mask, mm).transpose(1, 2).reshape(b, n, d)
 
 
 def ln_attention_block_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
-                             num_heads: int, mask=None):
+                             num_heads: int, mask=None, mm=_mm):
     """Plain PyTorch K1, rounding where ``_fused_ln_block_kernel`` rounds:
     h, qkv (before and after adding b_qkv, itself rounded), the scaled q,
     the probabilities and each head's output round to ``x.dtype``; the
     out-projection sums the heads in fp32 and adds the residual and b_out in
-    fp32."""
+    fp32. ``mm`` computes the four products (two GEMMs, and the two of the
+    attention core), as in ``attention_plain``."""
     dt = x.dtype
     x32 = x.float()
     h = layer_norm_f32(x32, ln_scale, ln_bias).to(dt)
-    attn = _mha_plain(h, w_qkv, b_qkv, num_heads, mask)
-    return (x32 + _mm(attn, w_out.to(dt)) + b_out.float()).to(dt)
+    attn = _mha_plain(h, w_qkv, b_qkv, num_heads, mask, mm)
+    return (x32 + mm(attn, w_out.to(dt)) + b_out.float()).to(dt)
 
 
 def attention_block_plain(h, w_qkv, b_qkv, w_out, b_out, num_heads: int,
-                          mask=None):
+                          mask=None, mm=_mm):
     """Plain PyTorch K8, rounding where ``_fused_block_kernel`` and its
     wrapper round: qkv and the heads as in K1 (without LN), the
     out-projection summed over the heads in fp32 and rounded to ``h.dtype``,
-    and only then b_out, rounded to it, added in it."""
+    and only then b_out, rounded to it, added in it. ``mm`` as in
+    ``ln_attention_block_plain``."""
     dt = h.dtype
-    attn = _mha_plain(h, w_qkv, b_qkv, num_heads, mask)
-    return _mm(attn, w_out.to(dt)).to(dt) + b_out.to(dt)
+    attn = _mha_plain(h, w_qkv, b_qkv, num_heads, mask, mm)
+    return mm(attn, w_out.to(dt)).to(dt) + b_out.to(dt)
 
 
 def attention_block_xla(h, w_qkv, b_qkv, w_out, b_out, num_heads: int,
@@ -220,15 +228,15 @@ def quick_gelu(h):
     return h * torch.sigmoid(1.702 * h)
 
 
-def ln_mlp_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
+def ln_mlp_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj, mm=_mm):
     """Plain PyTorch K2, rounding where ``_fused_mlp_kernel`` rounds: h and the
     QuickGELU output round to ``x.dtype``; biases, GELU and the residual are
-    fp32."""
+    fp32. ``mm`` computes the two products, as in ``attention_plain``."""
     dt = x.dtype
     x32 = x.float()
     h = layer_norm_f32(x32, ln_scale, ln_bias).to(dt)
-    hid = quick_gelu(_mm(h, w_fc.to(dt)) + b_fc.float())
-    out = _mm(hid.to(dt), w_proj.to(dt)) + b_proj.float()
+    hid = quick_gelu(mm(h, w_fc.to(dt)) + b_fc.float())
+    out = mm(hid.to(dt), w_proj.to(dt)) + b_proj.float()
     return (x32 + out).to(dt)
 
 
@@ -494,36 +502,38 @@ def _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream):
     )
 
 
-def _row_stats(lib, x2d, stream):
-    stats = torch.empty(x2d.shape[0], 2, dtype=torch.float32, device=x2d.device)
-    _build.check(
-        lib.cgt_ln_stats(_ptr(x2d), _ptr(stats), x2d.shape[0], x2d.shape[1],
-                         _DTYPE_CODE[x2d.dtype], stream),
-        "ln_stats",
-    )
-    return stats
-
-
-def _gemm(lib, a, w, bias, out, epilogue, stream, resid=None, stats=None,
-          gamma=None, beta=None):
-    """One product of ``ln_gemm.cu`` into ``out``. With ``stats`` (the LN
-    epilogues) a bf16 ``a`` is first normalised into a copy of its own by
-    ``cgt_ln_apply``, which the GEMM reads as is; fp32 normalises inside the
-    GEMM."""
+def _gemm(lib, a, w, bias, out, epilogue, stream, resid=None, tile=None):
+    """One product of ``ln_gemm.cu`` into ``out``: ``a`` [M, K] read as is
+    (the qkv and c_fc products take LN(x) from ``_ln_input``). fp32 runs the
+    3xTF32 core of gemm_tf32.cuh on the tile shape ``_tile_plan`` picks
+    unless ``tile`` gives it; bf16 has one tile shape."""
     m, k = a.shape
     n = w.shape[1]
-    if stats is not None and a.dtype == torch.bfloat16:
-        h = torch.empty_like(a)
-        _build.check(lib.cgt_ln_apply(_ptr(a), _ptr(stats), _ptr(gamma),
-                                      _ptr(beta), _ptr(h), m, k, stream),
-                     "ln_apply")
-        a, stats, gamma, beta = h, None, None, None
+    if tile is None:
+        tile = (_tile_plan(m, n, _sm_count(a.device.index or 0))
+                if a.dtype == torch.float32 else _TILE_128)
     _build.check(
-        lib.cgt_gemm(_ptr(a), _ptr(w), _ptr(bias), _ptr(resid), _ptr(stats),
-                     _ptr(gamma), _ptr(beta), _ptr(out), m, n, k,
-                     _DTYPE_CODE[a.dtype], epilogue, stream),
+        lib.cgt_gemm(_ptr(a), _ptr(w), _ptr(bias), _ptr(resid), _ptr(out), m, n,
+                     k, _DTYPE_CODE[a.dtype], epilogue, tile, stream),
         "ln_gemm",
     )
+
+
+def _ln_input(lib, x2d, gamma, beta, stream):
+    """LN(x) [rows, D] in x's dtype, the A of the qkv and c_fc products, in a
+    pass of its own: fp32 by ``_ln_f32``; bf16 by the row statistics, then
+    ``cgt_ln_apply``, which rounds once to bf16."""
+    if x2d.dtype == torch.float32:
+        return _ln_f32(lib, x2d, gamma, beta, stream)[1]
+    rows, cols = x2d.shape
+    stats = torch.empty(rows, 2, dtype=torch.float32, device=x2d.device)
+    _build.check(lib.cgt_ln_stats(_ptr(x2d), _ptr(stats), rows, cols, stream),
+                 "ln_stats")
+    h = torch.empty_like(x2d)
+    _build.check(lib.cgt_ln_apply(_ptr(x2d), _ptr(stats), _ptr(gamma),
+                                  _ptr(beta), _ptr(h), rows, cols, stream),
+                 "ln_apply")
+    return h
 
 
 def _ln_f32(lib, x2d, gamma, beta, stream):
@@ -546,23 +556,30 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _gemm_bwd_plan(m: int, n: int, k: int, product: str, sms: int):
-    """(tile, splits) of one product of gemm_bwd.cu on a card of ``sms``
-    SMs. A "tn" product (a weight gradient: K = T rows, few output tiles)
-    takes 128x128 tiles and splits K until about two blocks an SM are busy,
-    each split at least 256 rows. Any other product takes the tile shape
+def _tile_plan(m: int, n: int, sms: int) -> int:
+    """The tile shape of an unsplit product of the 3xTF32 core with an
+    [m, n] output on a card of ``sms`` SMs, for the forward products of
+    ln_gemm.cu and all but the weight gradients of gemm_bwd.cu: the shape
     whose busiest SM has the least work (its blocks times their area over
     the shape's rate: smaller blocks load and split more fragments for each
     product), the larger shape on a tie."""
-    if product == "tn":
-        tiles = -(-m // 128) * -(-n // 128)
-        return _TILE_128, max(1, min(16, 2 * sms // tiles, k // 256))
-
     def busiest(tile):
         bm, bn, rate = _TILES[tile]
         return -(-(-(-m // bm) * -(-n // bn)) // sms) * bm * bn / rate
 
-    return min(_TILES, key=busiest), 1
+    return min(_TILES, key=busiest)
+
+
+def _gemm_bwd_plan(m: int, n: int, k: int, product: str, sms: int):
+    """(tile, splits) of one product of gemm_bwd.cu on a card of ``sms``
+    SMs. A "tn" product (a weight gradient: K = T rows, few output tiles)
+    takes 128x128 tiles and splits K until about two blocks an SM are busy,
+    each split at least 256 rows. Any other product takes ``_tile_plan``'s
+    shape, unsplit."""
+    if product == "tn":
+        tiles = -(-m // 128) * -(-n // 128)
+        return _TILE_128, max(1, min(16, 2 * sms // tiles, k // 256))
+    return _tile_plan(m, n, sms), 1
 
 
 def _gemm_bwd(lib, product, a, b, m, n, k, stream, bias=None, aux=None,
@@ -649,10 +666,9 @@ def _ln_attention_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     qkv = torch.empty(b * n, 3 * d, dtype=x.dtype, device=x.device)
     attn = torch.empty(b * n, d, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    stats = _row_stats(lib, x2d, stream)
+    h = _ln_input(lib, x2d, _f32(ln_scale), _f32(ln_bias), stream)
     # the Pallas wrapper casts b_qkv to the working type, b_out to fp32
-    _gemm(lib, x2d, w_qkv, _f32(b_qkv.to(x.dtype)), qkv, _EPI_QKV, stream,
-          stats=stats, gamma=_f32(ln_scale), beta=_f32(ln_bias))
+    _gemm(lib, h, w_qkv, _f32(b_qkv.to(x.dtype)), qkv, _EPI_QKV, stream)
     _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream)
     _gemm(lib, attn, w_out, _f32(b_out), out.view(b * n, d), _EPI_RESID_ATTN,
           stream, resid=x2d)
@@ -669,9 +685,8 @@ def _ln_mlp_forward(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     x2d = x.view(b * n, d)
     hid = torch.empty(b * n, w_fc.shape[-1], dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    stats = _row_stats(lib, x2d, stream)
-    _gemm(lib, x2d, w_fc, _f32(b_fc), hid, _EPI_GELU, stream, stats=stats,
-          gamma=_f32(ln_scale), beta=_f32(ln_bias))
+    h = _ln_input(lib, x2d, _f32(ln_scale), _f32(ln_bias), stream)
+    _gemm(lib, h, w_fc, _f32(b_fc), hid, _EPI_GELU, stream)
     _gemm(lib, hid, w_proj, _f32(b_proj), out.view(b * n, d), _EPI_RESID_MLP,
           stream, resid=x2d)
     LAUNCHES["fused_ln_mlp"] += 1

@@ -93,7 +93,7 @@ def test_weight_gradients_split_k_to_fill_the_card(t):
 @pytest.mark.parametrize(
     "t, n, tile",
     [(2400, D, fa._TILE_64), (6144, D, fa._TILE_128X64),
-     (2400, 3 * D, fa._TILE_128), (6144, 3 * D, fa._TILE_128),
+     (2400, 3 * D, fa._TILE_64), (6144, 3 * D, fa._TILE_128X64),
      (2400, HIDDEN, fa._TILE_128X64), (6144, HIDDEN, fa._TILE_128)],
     ids=["T2400-N512", "T6144-N512", "T2400-N1536", "T6144-N1536", "T2400-N2048",
          "T6144-N2048"],

@@ -116,44 +116,48 @@ def test_k2_kernel_matches_plain(device, shape, dtype):
 
 
 # ---------------------------------------------------------------------------
-# The GEMM of ln_gemm.cu that K1, K2 and K8 launch, called directly in bf16
-# with each of its five epilogues, against the plain composition of the same
-# roundings, at the ragged edges of its 128x128 output tiles and 32-deep
-# k-tiles: one row, a row short of and past a tile, ViT-B/16 at 32 images
-# (6,304 rows); N = 800 and 200 (not multiples of 128) and K = 200 (not a
-# multiple of 32): c_fc and c_proj at D = 200.
+# The GEMM of ln_gemm.cu that K1, K2 and K8 launch, called directly with
+# each of its five epilogues (after the LN pass for qkv and c_fc), against
+# the plain composition of the same roundings, at the ragged edges of its
+# output and k tiles: one row, a row short of and past a 128-row tile,
+# ViT-B/16 at 32 images (6,304 rows); N = 800 and 200 (not multiples of
+# 128 or 64) and K = 200 (not a multiple of 32 or 16): c_fc and c_proj at
+# D = 200. bf16 runs its own kernel (128x128 tiles, 64-deep k-tiles); fp32
+# the 3xTF32 core of gemm_tf32.cuh with each of its three tile shapes.
 # ---------------------------------------------------------------------------
 
 GEMM_EPILOGUES = list(fa.GEMM_EPILOGUES)
 GEMM_ROWS = [1, 127, 129, 6304]
 GEMM_KN = [(200, 800), (800, 200)]
+GEMM_TILES = {"128": fa._TILE_128, "128x64": fa._TILE_128X64, "64": fa._TILE_64}
 
 
-def _gemm_inputs(m, k, n, device, seed=0):
+def _gemm_inputs(m, k, n, device, seed=0, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(device)
 
-    return {"a": rnd(m, k).bfloat16(), "w": rnd(k, n, scale=k**-0.5).bfloat16(),
-            "bias": 0.1 * rnd(n), "resid": rnd(m, n).bfloat16(),
+    return {"a": rnd(m, k).to(dtype), "w": rnd(k, n, scale=k**-0.5).to(dtype),
+            "bias": 0.1 * rnd(n), "resid": rnd(m, n).to(dtype),
             "gamma": 1 + 0.1 * rnd(k), "beta": 0.1 * rnd(k)}
 
 
-def _gemm_kernel(p, epilogue):
+def _gemm_kernel(p, epilogue, tile=None):
+    """One launch of ln_gemm.cu's product with ``epilogue`` (after the LN
+    pass for qkv and c_fc); ``tile`` forces an fp32 tile shape."""
     from clip_gp_tpu_torch.ops import _build
 
     code = GEMM_EPILOGUES.index(epilogue)
     lib = _build.library()
-    stream = torch.cuda.current_stream(p["a"].device).cuda_stream
-    out = torch.empty(p["a"].shape[0], p["w"].shape[1], dtype=torch.bfloat16,
-                      device=p["a"].device)
-    ln = epilogue in ("qkv", "gelu")
+    a = p["a"]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    out = torch.empty(a.shape[0], p["w"].shape[1], dtype=a.dtype, device=a.device)
+    if epilogue in ("qkv", "gelu"):
+        a = fa._ln_input(lib, a, p["gamma"], p["beta"], stream)
     resid = epilogue.startswith("resid")
-    fa._gemm(lib, p["a"], p["w"], p["bias"], out, code, stream,
-             resid=p["resid"] if resid else None,
-             stats=fa._row_stats(lib, p["a"], stream) if ln else None,
-             gamma=p["gamma"] if ln else None, beta=p["beta"] if ln else None)
+    fa._gemm(lib, a, p["w"], p["bias"], out, code, stream,
+             resid=p["resid"] if resid else None, tile=tile)
     return out
 
 
@@ -179,6 +183,39 @@ def test_bf16_gemm_repeats_bit_for_bit(device):
     p = _gemm_inputs(6304, 768, 2304, device, seed=5)
     for epilogue in GEMM_EPILOGUES:
         assert torch.equal(_gemm_kernel(p, epilogue), _gemm_kernel(p, epilogue))
+
+
+@pytest.mark.parametrize("tile", list(GEMM_TILES), ids=lambda t: f"tile{t}")
+@pytest.mark.parametrize("kn", GEMM_KN, ids=lambda kn: f"K{kn[0]}-N{kn[1]}")
+@pytest.mark.parametrize("m", GEMM_ROWS, ids=lambda m: f"M{m}")
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+def test_fp32_gemm_epilogue_matches_plain(device, epilogue, m, kn, tile):
+    p = _gemm_inputs(m, *kn, device, seed=m, dtype=torch.float32)
+    _assert_close(_gemm_kernel(p, epilogue, GEMM_TILES[tile]),
+                  _gemm_plain(p, epilogue), torch.float32)
+
+
+def test_fp32_gemm_repeats_bit_for_bit(device):
+    """The 3xTF32 core splits no K and has no atomics: with each tile shape
+    two calls agree bit for bit."""
+    p = _gemm_inputs(6304, 768, 2304, device, seed=6, dtype=torch.float32)
+    for epilogue in GEMM_EPILOGUES:
+        for tile in GEMM_TILES.values():
+            assert torch.equal(_gemm_kernel(p, epilogue, tile),
+                               _gemm_kernel(p, epilogue, tile))
+
+
+def test_fp32_gemm_refuses_a_shape_outside_its_layout(device):
+    """N and K must be multiples of 4 in fp32: the C entry refuses, and the
+    wrapper raises, with no other route."""
+    from clip_gp_tpu_torch.ops import _build
+
+    p = _gemm_inputs(64, 202, 64, device, dtype=torch.float32)
+    out = torch.empty(64, 64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with pytest.raises(RuntimeError, match="ln_gemm"):
+        fa._gemm(_build.library(), p["a"], p["w"], p["bias"], out,
+                 GEMM_EPILOGUES.index("bias"), stream)
 
 
 def _assert_grad_close(out, ref, name):
