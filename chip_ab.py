@@ -17,8 +17,11 @@ GEMM of ``ln_gemm.cu``, whose bf16 and fp32 paths are separate, so the fp32
 cells control a bf16 change and K5 and K7 a GEMM change. Its fp32 products
 run the 3xTF32 core of ``gemm_tf32.cuh``, as K3 and K4 (the backward
 kernels, dx only as the prompt learners launch them, at the trimmed text
-tower's CoOp step B=100 and CoCoOp chunk B=256) do through ``gemm_bwd.cu``,
-so a change to that core moves both, and the bf16 cells control it. The
+tower's CoOp step B=100 and CoCoOp chunk B=256, and K3 fp32 at B=100 on
+the untrimmed tower's 77 tokens) do through ``gemm_bwd.cu``, so a change to
+that core moves both, and the bf16 cells control it. K3 alone runs the
+attention backward of ``attention_bwd.cu``, which three cells also time on
+its own through its C entry. The
 fp32 forward cells include ViT-B/16 at 32 images, the batch of a CoOp
 step's image encode.
 """
@@ -51,6 +54,15 @@ CELLS = [
     (f"{name} dx text B={b} {dtype}", kernel, b, 24, 512, 8, True, dtype)
     for name, kernel in (("K3", "ln_attn_bwd"), ("K4", "ln_mlp_bwd"))
     for b in (100, 256) for dtype in ("fp32", "bf16")
+] + [
+    # K3 at a CoOp step on the untrimmed text tower (77 tokens)
+    ("K3 dx text B=100 N=77 fp32", "ln_attn_bwd", 100, 77, 512, 8, True, "fp32"),
+] + [
+    # K3's attention backward alone (attention_bwd.cu through its C entry,
+    # dqkv only, as the dx-only call launches it)
+    (f"K3 attention backward text B={b} N={n} fp32", "attention_bwd", b, n, 512, 8,
+     True, "fp32")
+    for b, n in ((256, 24), (100, 24), (100, 77))
 ]
 
 
@@ -71,6 +83,26 @@ def _call(kernel, b, n, d, heads, causal, dtype_name, device, cs):
     from clip_gp_tpu_torch.ops import int8_block as ib
 
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    if kernel == "attention_bwd":
+        from clip_gp_tpu_torch.ops import _build
+
+        lib = _build.library()
+        g = torch.Generator().manual_seed(b + n)
+        qkv = torch.randn(b * n, 3 * d, generator=g).to(device)
+        d_attn = torch.randn(b * n, d, generator=g).to(device)
+        mask = torch.triu(torch.full((n, n), float("-inf")), 1).to(device)
+        dqkv = torch.empty_like(qkv)
+        row_stats = torch.empty(b * n * heads, 3, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+        def run():
+            return lib.cgt_attention_bwd(qkv.data_ptr(), d_attn.data_ptr(),
+                                         mask.data_ptr(), dqkv.data_ptr(), None,
+                                         row_stats.data_ptr(), b, n, heads, d,
+                                         stream)
+
+        _build.check(run(), "attention_bwd")
+        return run
     if kernel == "flash_attention":
         g = torch.Generator().manual_seed(b + n)
         q, k, v = (torch.randn(b, heads, n, d // heads, generator=g).to(device, dtype)

@@ -18,7 +18,8 @@ exits non-zero before printing any result. Phases, each raising on failure:
    trimmed text tower (N=24, D=512, H=8, causal) at B=100 (a CoOp step on
    100 classes) and B=256 (a CoCoOp chunk at PROMPT_BUDGET), fp32, and B=256
    with a bf16 x — each asked for dx only (what the prompt learners launch)
-   and for all seven gradients; K5 and K6 (the int8 blocks of the serving
+   and for all seven gradients; K3 also at B=100 on the untrimmed text
+   tower (N=77, fp32); K5 and K6 (the int8 blocks of the serving
    tower) at ViT-B/16 B=32 and B=512 in bf16 (the serving dtype) and B=32
    in fp32; K7 (standalone attention on [B, H, N, Dh]) at ViT-B/16's heads
    (B=32 and B=512, H=12, N=197, Dh=64) and the text tower's (B=256, H=8,
@@ -33,7 +34,11 @@ exits non-zero before printing any result. Phases, each raising on failure:
    attention core that K1, K5, K7 and K8 share (K7 at N 1 to 256 across its
    strip and chunk edges, Dh 32 and 64, both dtypes, no mask, causal and a
    random finite mask; K1, K5 and K8 at N=17 and 256), printing the largest
-   error per group; a sweep of the GEMM that K1, K2 and K8 share, in bf16
+   error per group; a sweep of K3's attention-core backward
+   (attention_bwd.cu, called directly at N 1 to 256 across its key-tile
+   buckets and 16-row strips, no mask, causal and a random finite mask, with
+   and without the head outputs), printing the largest error over its limit
+   per mask; a sweep of the GEMM that K1, K2 and K8 share, in bf16
    (its own kernel) and fp32 (the 3xTF32 core of gemm_tf32.cuh, with each
    of its three tile shapes), each of its five epilogues called directly and
    the three blocks, at the edges of its output and k tiles (GEMM_SWEEP_*),
@@ -46,7 +51,8 @@ exits non-zero before printing any result. Phases, each raising on failure:
    (GEMM_BWD_TILE_CELLS); and a ``torch.profiler`` trace of three calls
    each of K1, K2 and K8 at ViT-B/16 B=512 in bf16 and fp32, of K5 in bf16
    and of K3 and K4 in fp32 (dx only and all gradients, text B=256 N=24),
-   printing the device time per call of each CUDA kernel by name;
+   printing the device time per call of each CUDA kernel by name, and for
+   K3 its attention backward's time beside that part's own bound;
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
    ``encode_image_q8`` (bf16, the same images) and an ``encode_text`` (256
    prompts) with random weights, and the gradient of a CoOp-shaped loss
@@ -164,13 +170,16 @@ SHAPES = [
 # both sides, so a different summation order can flip one rounding: one bf16
 # ulp, at most 2^-7 of the value, plus 2^-6 absolute for values near zero.
 TOLERANCES = {"fp32": (1e-4, 1e-4), "bf16": (2.0**-6, 2.0**-7)}
-# (name, batch, tokens, width, heads, x dtype) of the backward cells: the
-# trimmed text tower of the prompt learners (n_ctx 16 + a class name covers
-# 24 positions), a CoOp step on 100 classes and a CoCoOp chunk of 256 prompts
+# (name, batch, tokens, width, heads, x dtype, kernels) of the backward
+# cells: the trimmed text tower of the prompt learners (n_ctx 16 + a class
+# name covers 24 positions), a CoOp step on 100 classes and a CoCoOp chunk
+# of 256 prompts; and K3 at a CoOp step on the untrimmed tower
+# (CLIP_GP_TPU_TORCH_TRIM_PROMPTS=0: 77 tokens)
 BWD_SHAPES = [
-    ("coop", 100, 24, 512, 8, "fp32"),
-    ("cocoop", 256, 24, 512, 8, "fp32"),
-    ("cocoop", 256, 24, 512, 8, "bf16"),
+    ("coop", 100, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
+    ("cocoop", 256, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
+    ("cocoop", 256, 24, 512, 8, "bf16", ("ln_attn_bwd", "ln_mlp_bwd")),
+    ("coop-untrimmed", 100, 77, 512, 8, "fp32", ("ln_attn_bwd",)),
 ]
 # K3/K4 kernel vs plain: both recompute the block in fp32 and sum up to
 # T = B·N rows of fp32 products into each weight gradient, in other orders;
@@ -216,6 +225,13 @@ K7_SHAPES = [
 CORE_SWEEP_N = (1, 15, 16, 17, 50, 77, 197, 255, 256)
 CORE_SWEEP_MASKS = ("none", "causal", "random")
 CORE_BLOCK_N = (17, 256)
+# the attention backward's sweep (phase 2, untimed): the core of K3
+# (attention_bwd.cu) called directly on random fp32 qkv and d_attn at the
+# edges of its buckets of 8-key tiles (3, 4, 10 and 16 in one launch; 26 and
+# 32 split past 128 tokens) and of its 16-row strips, under each mask of
+# _sweep_mask, with and without the head outputs; held to BWD_RTOL of
+# attention_bwd_plain
+ATTN_BWD_SWEEP_N = (1, 15, 16, 17, 24, 33, 77, 128, 129, 256)
 # the GEMM's sweep (phase 2, untimed): the product of ln_gemm.cu in bf16 (its
 # own kernel: 128x128 output tiles, 64-deep k-tiles) and fp32 (the 3xTF32
 # core with each tile shape: 128x128, 128x64, 64x64; 16-deep k-tiles) at the
@@ -335,6 +351,19 @@ def compare_margin(out, ref, atol: float, rtol: float):
 # phase 1
 # ---------------------------------------------------------------------------
 
+def _log_instantiations(source, ptxas):
+    """One line per kernel of a ptxas -v log: its template arguments,
+    registers and spill stores and loads."""
+    for entry in ptxas.split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        args = ", ".join(re.findall(r"Li(\d+)E", name))
+        regs = re.search(r"Used (\d+) registers", entry)
+        spills = re.findall(r"(\d+) bytes spill (stores|loads)", entry)
+        spill = ", ".join(f"{n} bytes spill {kind}" for n, kind in spills)
+        log(f"[build] ptxas {source} <{args}>: "
+            f"{regs.group(1) if regs else '?'} registers, {spill}")
+
+
 def phase_build():
     import torch
 
@@ -354,6 +383,8 @@ def phase_build():
             spills = [int(s) for s in re.findall(r"(\d+) bytes spill", ptxas)]
             log(f"[build] ptxas {source}: {len(regs)} kernels, {min(regs)}-"
                 f"{max(regs)} registers a thread, {sum(spills)} bytes of spills")
+            if source.startswith("attention_bwd"):
+                _log_instantiations(source, ptxas)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -954,6 +985,60 @@ def phase_gemm_bwd_sweep(device):
     torch.cuda.empty_cache()
 
 
+def phase_attention_bwd_sweep(device, batch=2, heads=2):
+    """The attention-core backward of K3 (``_attention_bwd``) against
+    ``attention_bwd_plain``, untimed: random fp32 qkv and d_attn at every
+    ATTN_BWD_SWEEP_N under each mask of ``_sweep_mask``, with the head
+    outputs and without (dqkv alone, as the dx-only call asks). Prints the
+    largest error over its limit (BWD_RTOL of max|plain| + |plain|) per mask
+    and raises past it."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import _build
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    d = heads * fa.HEAD_DIM
+    worst = {}  # mask -> (error over limit, max abs error, where)
+    with torch.no_grad():
+        for n in ATTN_BWD_SWEEP_N:
+            for kind in CORE_SWEEP_MASKS:
+                g = torch.Generator().manual_seed(1000 + n)
+                qkv = torch.randn(batch * n, 3 * d, generator=g).to(device)
+                d_attn = torch.randn(batch * n, d, generator=g).to(device)
+                mask = _sweep_mask(kind, n, device, g)
+                dqkv_ref, attn_ref = fa.attention_bwd_plain(
+                    qkv.view(batch, n, 3 * d), d_attn.view(batch, n, d), mask, heads)
+                for with_attn in (True, False):
+                    dqkv, attn = fa._attention_bwd(lib, qkv, d_attn, mask, batch, n,
+                                                   heads, d, stream, with_attn)
+                    torch.cuda.synchronize()
+                    pairs = [(dqkv, dqkv_ref.reshape(batch * n, 3 * d))]
+                    if with_attn:
+                        pairs.append((attn, attn_ref.reshape(batch * n, d)))
+                    for name, (out, ref) in zip(("dqkv", "attn"), pairs):
+                        if not bool(torch.isfinite(out).all()):
+                            raise RuntimeError(f"attention_bwd sweep N={n} "
+                                               f"mask={kind}: non-finite {name}")
+                        diff = (out - ref).abs()
+                        over = (diff / (BWD_RTOL["fp32"] * (ref.abs().max()
+                                                          + ref.abs()))).max().item()
+                        what = f"N={n} {name}{'' if with_attn else ' (dx only)'}"
+                        if over > 1.0:
+                            raise RuntimeError(
+                                f"attention_bwd sweep {what} mask={kind}: kernel "
+                                f"disagrees with its plain version, error "
+                                f"{over:.3f} of its limit")
+                        if over > worst.get(kind, (-1.0,))[0]:
+                            worst[kind] = (over, diff.max().item(), what)
+    for kind, (over, max_abs, what) in worst.items():
+        log(f"[attention_bwd sweep] mask={kind}: largest error at {what}: "
+            f"{over:.4f} of its limit (max_abs_err {max_abs:.3e})")
+    log(f"[attention_bwd sweep] {len(ATTN_BWD_SWEEP_N)} sequence lengths x "
+        f"{len(CORE_SWEEP_MASKS)} masks within tolerance")
+
+
 def _short_kernel_name(name: str) -> str:
     """A CUDA kernel's demangled name without its namespaces, return type and
     argument list."""
@@ -1006,6 +1091,7 @@ def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
                           for key, us in sorted(times.items(), key=lambda kv: -kv[1]))
         log(f"[profile] {label} {shape}: device time per call "
             f"{total / 1e3:.4f} ms over {calls} calls: {parts}")
+        return times
 
     with torch.no_grad():
         for dtype_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
@@ -1029,12 +1115,31 @@ def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
     dout = torch.randn(256, 24, 512, generator=torch.Generator().manual_seed(902))
     dout = dout.to(device)
     for param_grads, grads in ((False, "dx"), (True, "all")):
-        profiled(f"K3 fp32 {grads}", lambda: fa.ln_attn_bwd(
+        times = profiled(f"K3 fp32 {grads}", lambda: fa.ln_attn_bwd(
             p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"], p["w_out"],
             p["mask"], 8, dout, param_grads=param_grads), shape="text B=256 N=24")
+        # the attention backward's own kernels against their bound
+        attn_us = sum(us for key, us in times.items() if "attn_bwd" in key)
+        flops, nbytes = _attention_bwd_cost(256, 24, 512, param_grads)
+        t_ops = flops / op_rate(card_peaks(torch.cuda.get_device_name(0)), "fp32")
+        t_bytes = nbytes / card_peaks(torch.cuda.get_device_name(0))["bytes"]
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        log(f"[profile] K3 fp32 {grads} text B=256 N=24: attention backward "
+            f"{attn_us / 1e3:.4f} ms per call, bound {bound_ms:.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}: {nbytes / 1e6:.1f} "
+            f"MB, {flops / 1e9:.2f} GFLOP), {100 * bound_ms * 1e3 / attn_us:.1f}% "
+            f"of it")
         profiled(f"K4 fp32 {grads}", lambda: fa.ln_mlp_bwd(
             p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"], p["w_proj"],
             dout, param_grads=param_grads), shape="text B=256 N=24")
+
+
+def _attention_bwd_cost(b, n, d, with_attn):
+    """(FLOPs, bytes) of K3's attention-core backward: qkv, d_attn and the
+    mask read once, dqkv (and the head outputs) written once, fp32; six
+    products of 2·B·N²·D FLOPs each."""
+    nbytes = 4 * (b * n * (3 + 1 + 3 + (1 if with_attn else 0)) * d + n * n)
+    return 12 * b * n * n * d, nbytes
 
 
 def _bwd_cost(kernel, b, n, d, itemsize, param_grads):
@@ -1104,7 +1209,7 @@ def phase_bwd_kernels(device, peaks):
     from clip_gp_tpu_torch.ops import flash_attention as fa
 
     cells = []
-    for shape_name, b, n, d, heads, dtype_name in BWD_SHAPES:
+    for shape_name, b, n, d, heads, dtype_name, kernels in BWD_SHAPES:
         dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
         p = _block_inputs(b, n, d, True, dtype, device, seed=100 + len(cells))
         p["dout"] = torch.randn(b, n, d, generator=torch.Generator().manual_seed(
@@ -1118,7 +1223,7 @@ def phase_bwd_kernels(device, peaks):
                            p["b_fc"], p["w_proj"], p["dout"]),
         }
         plain = {"ln_attn_bwd": fa.ln_attn_bwd_plain, "ln_mlp_bwd": fa.ln_mlp_bwd_plain}
-        for kernel in ("ln_attn_bwd", "ln_mlp_bwd"):
+        for kernel in kernels:
             a = args[kernel]
             run_plain = lambda: plain[kernel](*a)  # noqa: E731
             ref = run_plain()
@@ -2014,6 +2119,7 @@ def main() -> int:
              + phase_q8_kernels(device, peaks)
              + phase_attention_kernels(device, peaks))
     phase_core_sweep(device)
+    phase_attention_bwd_sweep(device)
     phase_gemm_sweep(device)
     phase_gemm_bwd_sweep(device)
     phase_profile(device)

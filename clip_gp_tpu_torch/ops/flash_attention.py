@@ -28,7 +28,8 @@ residual epilogue (the GEMMs of ``ln_gemm.cu``: bf16 on its own
 K4 = an fp32 LN pass (LN(x) and its statistics) → the 3xTF32 GEMMs of
 ``gemm_bwd.cu`` on the same core (transposed operands; bias, QuickGELU and
 QuickGELU-derivative epilogues) → the attention backward of
-``attention_bwd.cu`` (K3) → the LN backward and column sums of
+``attention_bwd.cu`` (K3; 3xTF32 on the tensor cores, checked against
+``attention_bwd_plain``) → the LN backward and column sums of
 ``ln_bwd.cu``; K7 = the attention core of ``attention.cu`` reading
 contiguous heads; K8 = GEMM with a bias epilogue (qkv) → K1's attention
 core → GEMM with a bias epilogue. In this version the qkv and hidden
@@ -306,22 +307,17 @@ def _ln_backward(dout32, dh, rstd, xhat, ln_scale):
     return dout32 + rstd * (dxhat - m1 - xhat * m2), dg, db
 
 
-def ln_attn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
-                      num_heads: int, dout, mm=torch.matmul):
-    """Plain PyTorch K3, following ``_ln_attn_bwd_kernel``: every input is
-    upcast to fp32 and the block is recomputed in fp32 (for a bf16 ``x`` this
-    is an fp32 recompute, not the bf16 forward). Returns (dx in x.dtype, dγ,
-    dβ, dWqkv, dbqkv, dWout, dbout): each gradient in its input's dtype,
-    except dbout, which stays fp32 (the Pallas call site casts it). ``mm``
-    computes the five products that gemm_bwd.cu runs (qkv, d_attn, dh,
-    dWqkv, dWout); a test passes an emulation of the card's arithmetic."""
-    b, n, d = x.shape
+def attention_bwd_plain(qkv, d_attn, mask, num_heads: int, mm=torch.matmul):
+    """Plain PyTorch attention-core backward of K3 (what ``attention_bwd.cu``
+    computes), following the per-head loop of ``_ln_attn_bwd_kernel`` in
+    fp32: from qkv [B, N, 3D] and the gradient d_attn [B, N, D] at the heads'
+    outputs, returns (dqkv [B, N, 3D], the head outputs attn [B, N, D]).
+    ``mm`` computes the six products (S, O, dP, dv, dq, dk); a test passes
+    an emulation of the card's arithmetic."""
+    b, n, three_d = qkv.shape
+    d = three_d // 3
     dh = d // num_heads
     inv = 1.0 / dh**0.5
-    rstd, xhat, h = _ln_recompute(x, ln_scale, ln_bias)
-    dout32 = dout.float()
-    w_qkv32, w_out32 = w_qkv.float(), w_out.float()
-    qkv = mm(h, w_qkv32) + b_qkv.float()
 
     def heads(t):  # [B, N, D] -> [B, H, N, dh]
         return t.reshape(b, n, num_heads, dh).transpose(1, 2)
@@ -329,25 +325,46 @@ def ln_attn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
     def merge(t):  # [B, H, N, dh] -> [B, N, D]
         return t.transpose(1, 2).reshape(b, n, d)
 
-    q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
+    q, k, v = (heads(t) for t in qkv.float().split(d, dim=-1))
     q_s = q * inv
-    scores = q_s @ k.transpose(-1, -2)
+    scores = mm(q_s, k.transpose(-1, -2))
     if mask is not None:
         scores = scores + mask.float()
     scores = scores - scores.amax(-1, keepdim=True)
     w = scores.exp()
     a = w / w.sum(-1, keepdim=True)
-    out_h = a @ v
-    d_outh = heads(mm(dout32, w_out32.T))
-    da = d_outh @ v.transpose(-1, -2)
-    dv = a.transpose(-1, -2) @ d_outh
+    out_h = mm(a, v)
+    d_outh = heads(d_attn.float())
+    da = mm(d_outh, v.transpose(-1, -2))
+    dv = mm(a.transpose(-1, -2), d_outh)
     ds = a * (da - (da * a).sum(-1, keepdim=True))
-    dq = (ds @ k) * inv
-    dk = ds.transpose(-1, -2) @ q_s
-    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    dq = mm(ds, k) * inv
+    dk = mm(ds.transpose(-1, -2), q_s)
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1), merge(out_h)
+
+
+def ln_attn_bwd_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
+                      num_heads: int, dout, mm=torch.matmul,
+                      attn_mm=torch.matmul):
+    """Plain PyTorch K3, following ``_ln_attn_bwd_kernel``: every input is
+    upcast to fp32 and the block is recomputed in fp32 (for a bf16 ``x`` this
+    is an fp32 recompute, not the bf16 forward). Returns (dx in x.dtype, dγ,
+    dβ, dWqkv, dbqkv, dWout, dbout): each gradient in its input's dtype,
+    except dbout, which stays fp32 (the Pallas call site casts it). ``mm``
+    computes the five products that gemm_bwd.cu runs (qkv, d_attn, dh,
+    dWqkv, dWout), ``attn_mm`` the six of the attention core
+    (``attention_bwd_plain``); a test passes emulations of the card's
+    arithmetic."""
+    b, n, d = x.shape
+    rstd, xhat, h = _ln_recompute(x, ln_scale, ln_bias)
+    dout32 = dout.float()
+    w_qkv32, w_out32 = w_qkv.float(), w_out.float()
+    qkv = mm(h, w_qkv32) + b_qkv.float()
+    dqkv, out = attention_bwd_plain(qkv, mm(dout32, w_out32.T), mask,
+                                    num_heads, mm=attn_mm)
     rows = (0, 1)
     dwqkv = mm(h.reshape(-1, d).T, dqkv.reshape(-1, 3 * d))
-    dwout = mm(merge(out_h).reshape(-1, d).T, dout32.reshape(-1, d))
+    dwout = mm(out.reshape(-1, d).T, dout32.reshape(-1, d))
     dx, dg, db = _ln_backward(dout32, mm(dqkv, w_qkv32.T), rstd, xhat, ln_scale)
     return (dx.to(x.dtype), dg.to(ln_scale.dtype), db.to(ln_bias.dtype),
             dwqkv.to(w_qkv.dtype), dqkv.sum(rows).to(b_qkv.dtype),
@@ -500,6 +517,27 @@ def _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream):
                           num_heads, d, _DTYPE_CODE[qkv.dtype], stream),
         "attention",
     )
+
+
+def _attention_bwd(lib, qkv, d_attn, mask, b, n, num_heads, d, stream,
+                   with_attn):
+    """The attention-core backward of K3 (``attention_bwd.cu``): fp32 qkv
+    [B·N, 3D] and d_attn [B·N, D] -> (dqkv [B·N, 3D], the head outputs
+    [B·N, D] if ``with_attn`` else None)."""
+    dqkv = torch.empty(b * n, 3 * d, dtype=torch.float32, device=qkv.device)
+    attn = (torch.empty(b * n, d, dtype=torch.float32, device=qkv.device)
+            if with_attn else None)
+    # the row statistics of the split launches (N > 128)
+    row_stats = torch.empty(b * n * num_heads, 3, dtype=torch.float32,
+                            device=qkv.device)
+    mask32 = None if mask is None else _f32(mask)
+    _build.check(
+        lib.cgt_attention_bwd(_ptr(qkv), _ptr(d_attn), _ptr(mask32),
+                              _ptr(dqkv), _ptr(attn), _ptr(row_stats), b, n,
+                              num_heads, d, stream),
+        "attention_bwd",
+    )
+    return dqkv, attn
 
 
 def _gemm(lib, a, w, bias, out, epilogue, stream, resid=None, tile=None):
@@ -771,18 +809,8 @@ def ln_attn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
     qkv = _gemm_bwd(lib, "nn_bias", h, w_qkv32, t, 3 * d, d, stream,
                     bias=_f32(b_qkv))
     d_attn = _gemm_bwd(lib, "nt", dout2d, _f32(w_out), t, d, d, stream)
-    dqkv = torch.empty(t, 3 * d, dtype=torch.float32, device=x.device)
-    attn = (torch.empty(t, d, dtype=torch.float32, device=x.device)
-            if param_grads else None)
-    row_stats = torch.empty(t * num_heads, 3, dtype=torch.float32,
-                            device=x.device)
-    mask32 = None if mask is None else _f32(mask)
-    _build.check(
-        lib.cgt_attention_bwd(_ptr(qkv), _ptr(d_attn), _ptr(mask32),
-                              _ptr(dqkv), _ptr(attn), _ptr(row_stats), b, n,
-                              num_heads, d, stream),
-        "attention_bwd",
-    )
+    dqkv, attn = _attention_bwd(lib, qkv, d_attn, mask, b, n, num_heads, d,
+                                stream, param_grads)
     dh = _gemm_bwd(lib, "nt", dqkv, w_qkv32, t, d, 3 * d, stream)
     dx, dg, db = _ln_bwd(lib, x2d, dout2d, dh, stats, gamma, stream,
                          param_grads)

@@ -228,13 +228,26 @@ def _assert_grad_close(out, ref, name):
                                atol=rtol * scale, msg=name)
 
 
-K3_SHAPES = [  # (batch, tokens, width, heads, causal)
+K3_SHAPES = [  # (batch, tokens, width, heads, mask: True causal, "random")
     (3, 1, 128, 2, True),
     (3, 11, 128, 2, True),
     (100, 24, 512, 8, True),
     (2, 77, 512, 8, True),
     (2, 197, 768, 12, False),
     (1, 256, 256, 4, False),
+    # the attention backward's edges: its buckets of 8-key tiles (3, 4, 10,
+    # 16; past 128 tokens the split launches, 26 and 32) and 16-row strips
+    (2, 1, 128, 2, "random"),
+    (2, 15, 128, 2, True),
+    (2, 16, 128, 2, "random"),
+    (2, 17, 128, 2, False),
+    (4, 24, 128, 2, "random"),
+    (2, 33, 128, 2, True),
+    (2, 77, 128, 2, "random"),
+    (2, 128, 128, 2, True),
+    (2, 129, 128, 2, "random"),
+    (1, 256, 128, 2, True),
+    (1, 256, 128, 2, "random"),
 ]
 K4_SHAPES = [  # (batch, tokens, width, hidden)
     (3, 1, 128, 512),
@@ -254,8 +267,11 @@ def _dout(p, seed=1):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
 def test_k3_kernel_matches_plain(device, shape, dtype, param_grads):
-    b, n, d, heads, causal = shape
-    p = _inputs(b, n, d, dtype, device, causal=causal)
+    b, n, d, heads, mask = shape
+    p = _inputs(b, n, d, dtype, device, causal=mask is True)
+    if mask == "random":  # a finite additive mask
+        g = torch.Generator().manual_seed(n)
+        p["mask"] = (2 * torch.randn(n, n, generator=g)).to(device)
     args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
             p["w_out"], p["mask"], heads, _dout(p))
     got = fa.ln_attn_bwd(*args, param_grads=param_grads)
@@ -295,6 +311,17 @@ def test_backward_kernels_repeat_bit_for_bit(device):
     args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_fc"], p["b_fc"],
             p["w_proj"], _dout(p))
     first, second = fa.ln_mlp_bwd(*args), fa.ln_mlp_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_backward_repeats_bit_for_bit_past_128_tokens(device):
+    """K3 past 128 tokens, where the attention backward's two sides run as
+    two launches with the row statistics between them."""
+    p = _inputs(2, 197, 256, torch.float32, device)
+    args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
+            p["w_out"], p["mask"], 4, _dout(p))
+    first, second = fa.ln_attn_bwd(*args), fa.ln_attn_bwd(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
