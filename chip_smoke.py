@@ -227,11 +227,11 @@ CORE_SWEEP_MASKS = ("none", "causal", "random")
 CORE_BLOCK_N = (17, 256)
 # the attention backward's sweep (phase 2, untimed): the core of K3
 # (attention_bwd.cu) called directly on random fp32 qkv and d_attn at the
-# edges of its buckets of 8-key tiles (3, 4, 10 and 16 in one launch; 26 and
-# 32 split past 128 tokens) and of its 16-row strips, under each mask of
+# edges of its buckets of 8-key tiles (3, 4 and 10 in one launch; 32 split
+# past 80 tokens) and of its 16-row strips, under each mask of
 # _sweep_mask, with and without the head outputs; held to BWD_RTOL of
 # attention_bwd_plain
-ATTN_BWD_SWEEP_N = (1, 15, 16, 17, 24, 33, 77, 128, 129, 256)
+ATTN_BWD_SWEEP_N = (1, 15, 16, 17, 24, 33, 77, 80, 81, 128, 129, 256)
 # the GEMM's sweep (phase 2, untimed): the product of ln_gemm.cu in bf16 (its
 # own kernel: 128x128 output tiles, 64-deep k-tiles) and fp32 (the 3xTF32
 # core with each tile shape: 128x128, 128x64, 64x64; 16-deep k-tiles) at the

@@ -41,32 +41,34 @@
 // - the q side: a warp per 16-query strip forms S and the softmax in
 //   registers (keys past N at -inf), O = P·V with P's accumulators as the
 //   A fragment, δ = rowsum(d_out∘O), then dq = dS·K/8 one 8-key tile at a
-//   time (dS tile = P∘(dP − δ), dq += dS_tile·K_tile). Up to 16 key tiles
-//   dP's strip is formed beside S's in one pass over the head width, so
-//   d_out's fragments are read once; past that the registers hold no second
-//   strip and each dP tile is formed where it is used. It writes dq, O and
-//   the row statistics (max, sum, 1/sum, δ).
+//   time (dS tile = P∘(dP − δ), dq += dS_tile·K_tile). In the one-launch
+//   buckets dP's strip is formed beside S's in one pass over the head
+//   width, so d_out's fragments are read once; in the split launch the
+//   registers hold no second strip and each dP tile is formed where it is
+//   used. It writes dq, O and the row statistics (max, sum, 1/sum, δ).
 // - the kv side: a warp per 16-key strip streams the 8-query tiles: Sᵀ
-//   tile (its cross terms issued in the q side's order) → Pᵀ from the row
-//   statistics → dPᵀ tile → dSᵀ tile, then dk += dSᵀ·q_s and dv += Pᵀ·d_out.
-//   Its registers do not grow with N. Query rows past N give Pᵀ = dSᵀ = 0
-//   by a select, never exp(s − m) of statistics no strip wrote.
-// Up to N = 128 one block per (head, batch element) runs both sides, a
-// warp per strip (2 to 8), the statistics in shared memory between them:
-// the inputs are read once and no [N, N] matrix or statistic reaches device
-// memory. At the text tower's N = 24 a block of 2 warps holds 35 KB, six
-// an SM. The key tiles are a compile-time bucket (3, 4, 10 or 16 tiles of
-// 8), since the q side's strip of scores lives in registers. Past 128
-// tokens the four operands would not fit shared memory (278 KB at N =
-// 256), so the sides split into two launches of four warps per 64-row tile
-// (buckets 26 and 32): the q side holds the head's k and v and its tile's
-// q and d_out, and writes the statistics to row_stats; the kv side holds q
-// and d_out and its tile's k and v. Every output element is summed by one
-// thread in a fixed order, with no atomics, so the bits repeat run to run.
-// The kv side recomputes the scores with the same operands, k order and
-// pass order as the q side, but no result depends on P agreeing bit for bit
-// between the two. Registers and spills of each instantiation are printed
-// by the build (-Xptxas -v) and by chip_smoke.py.
+//   tile → Pᵀ from the row statistics → dPᵀ tile → dSᵀ tile, then
+//   dk += dSᵀ·q_s and dv += Pᵀ·d_out. Its registers do not grow with N.
+//   Query rows past N give Pᵀ = dSᵀ = 0 by a select, never exp(s − m) of
+//   statistics no strip wrote.
+// Up to N = 80 (the text tower's 77 tokens, trimmed or not) one block per
+// (head, batch element) runs both sides, a warp per strip (2 to 5), the
+// statistics in shared memory between them: the inputs are read once and
+// no [N, N] matrix or statistic reaches device memory. At the text tower's
+// N = 24 a block of 2 warps holds 35 KB, six an SM. The key tiles are a
+// compile-time bucket (3, 4 or 10 tiles of 8), since the q side's strip of
+// scores lives in registers. Past 80 tokens, up to the 256 of the
+// contract (no path of the port sends them; at 256 the four operands would
+// need 278 KB of shared memory), the sides split into two launches of four
+// warps per 64-row tile, with 32 key tiles: the q side holds the head's k and v and its
+// tile's q and d_out, and writes the statistics to row_stats; the kv side
+// holds q and d_out and its tile's k and v. Every output element is summed
+// by one thread in a fixed order, with no atomics, so the bits repeat run
+// to run. The kv side recomputes the scores from the same operands, but
+// the tensor cores' sum of a k-step is not specified, so its P may differ
+// from the q side's in the last bit; no result depends on the two
+// agreeing. Registers and spills of each instantiation are printed by the
+// build (-Xptxas -v) and by chip_smoke.py.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -79,7 +81,7 @@ constexpr int LD = DH + 4;       // floats a shared row
 constexpr int STRIP = 16;        // rows of a warp's strip (the mma's m)
 constexpr int TILE = 64;         // rows of one side a split block takes
 constexpr int MAX_N = 256;
-constexpr int FUSED_MAX_N = 128;
+constexpr int FUSED_MAX_N = 80;  // one launch up to 10 key tiles
 constexpr float SCALE = 0.125f;  // 1/sqrt(64), exact
 
 // kBoth: one block runs both sides of a head; kQ / kKV: one side of a
@@ -166,22 +168,14 @@ __device__ __forceinline__ void mma_tf32_first(float (&d)[4],
         "f"(0.f));
 }
 
-// one k-step: the three products summed from zero, then added in fp32.
-// SWAPPED issues hi·lo before lo·hi: with A and B the q side's B and A
-// (Sᵀ = K·Q_sᵀ against S = Q_s·Kᵀ), the same terms in the same order.
-template <bool SWAPPED = false>
+// one k-step: the three products summed from zero, then added in fp32
 __device__ __forceinline__ void kstep(float (&acc)[4], const uint32_t (&ah)[4],
                                       const uint32_t (&al)[4],
                                       const uint32_t (&bh)[2],
                                       const uint32_t (&bl)[2]) {
   float d[4];
-  if (SWAPPED) {
-    mma_tf32_first(d, ah, bl[0], bl[1]);
-    mma_tf32(d, al, bh[0], bh[1]);
-  } else {
-    mma_tf32_first(d, al, bh[0], bh[1]);
-    mma_tf32(d, ah, bl[0], bl[1]);
-  }
+  mma_tf32_first(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
   mma_tf32(d, ah, bh[0], bh[1]);
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] += d[e];
@@ -222,10 +216,10 @@ __device__ __forceinline__ void q_strip(const Head& hd, const float* Qs,
                                         const float* Vs, int row0, int r0,
                                         const float* mask, int N, float* sm,
                                         int rows_sm, int lane) {
-  // up to 16 key tiles dP's strip is held beside S's (at most 64 more
-  // registers), so d_out's fragments are read once; past that dP streams a
-  // tile at a time below
-  constexpr bool kDpStrip = NT <= 16;
+  // in the one-launch buckets dP's strip is held beside S's (at most 40
+  // more registers), so d_out's fragments are read once; in the split
+  // launch dP streams a tile at a time below
+  constexpr bool kDpStrip = NT * 8 <= FUSED_MAX_N;
   const int g = lane >> 2, t = lane & 3;
   const int rows[2] = {r0 + g, r0 + g + 8};
   uint32_t ah[4], al[4], bh[2], bl[2];
@@ -419,10 +413,10 @@ __device__ __forceinline__ void kv_strip(const Head& hd, const float* Qs,
     for (int kk = 0; kk < DH; kk += 8) {
       frag_a_rows(ah, al, ka + kk, 1.f);
       frag_b_rows(bh, bl, qb + kk, SCALE);
-      kstep<true>(st, ah, al, bh, bl);
+      kstep(st, ah, al, bh, bl);
       frag_a_rows(ah, al, va + kk, 1.f);
       frag_b_rows(bh, bl, ob + kk, 1.f);
-      kstep<true>(dpt, ah, al, bh, bl);
+      kstep(dpt, ah, al, bh, bl);
     }
     // Pᵀ and dSᵀ from the row statistics; 0 for queries past N
     float pt[4], dst[4];
@@ -503,7 +497,7 @@ __global__ void __launch_bounds__(Layout<NT, MODE>::WARPS * 32,
   hd.dk = hd.dq + D;
   hd.dv = hd.dq + 2 * D;
   hd.attn = attn == nullptr ? nullptr : attn + row_off * D + h * DH;
-  hd.stats = row_stats + ((size_t)b * H + h) * N * 3;
+  hd.stats = MODE == kBoth ? nullptr : row_stats + ((size_t)b * H + h) * N * 3;
   const int qbase = MODE == kQ ? tile * TILE : 0;
   const int kbase = MODE == kKV ? tile * TILE : 0;
 
@@ -587,8 +581,8 @@ int launch_split(const void* qkv, const void* d_attn, const void* mask,
 
 }  // namespace
 
-// row_stats: fp32 scratch of B·H·N·3 floats (written and read only past
-// 128 tokens); attn may be null (no dWout)
+// row_stats: fp32 scratch of B·H·N·3 floats, written and read only past
+// 80 tokens (may be null up to there); attn may be null (no dWout)
 extern "C" int cgt_attention_bwd(const void* qkv, const void* d_attn,
                                  const void* mask, void* dqkv, void* attn,
                                  void* row_stats, int B, int N, int H, int D,
@@ -601,11 +595,9 @@ extern "C" int cgt_attention_bwd(const void* qkv, const void* d_attn,
     return launch_fused<3>(qkv, d_attn, mask, dqkv, attn, row_stats, B, N, H, D, s);
   if (tiles <= 4)
     return launch_fused<4>(qkv, d_attn, mask, dqkv, attn, row_stats, B, N, H, D, s);
-  if (tiles <= 10)
+  if (N <= FUSED_MAX_N)
     return launch_fused<10>(qkv, d_attn, mask, dqkv, attn, row_stats, B, N, H, D, s);
-  if (tiles <= FUSED_MAX_N / 8)
-    return launch_fused<16>(qkv, d_attn, mask, dqkv, attn, row_stats, B, N, H, D, s);
-  if (tiles <= 26)
-    return launch_split<26>(qkv, d_attn, mask, dqkv, attn, row_stats, B, N, H, D, s);
-  return launch_split<32>(qkv, d_attn, mask, dqkv, attn, row_stats, B, N, H, D, s);
+  if (row_stats == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_split<MAX_N / 8>(qkv, d_attn, mask, dqkv, attn, row_stats, B, N, H,
+                                 D, s);
 }

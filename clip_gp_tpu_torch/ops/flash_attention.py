@@ -527,9 +527,9 @@ def _attention_bwd(lib, qkv, d_attn, mask, b, n, num_heads, d, stream,
     dqkv = torch.empty(b * n, 3 * d, dtype=torch.float32, device=qkv.device)
     attn = (torch.empty(b * n, d, dtype=torch.float32, device=qkv.device)
             if with_attn else None)
-    # the row statistics of the split launches (N > 128)
-    row_stats = torch.empty(b * n * num_heads, 3, dtype=torch.float32,
-                            device=qkv.device)
+    # the row statistics between the two launches past 80 tokens
+    row_stats = (torch.empty(b * n * num_heads, 3, dtype=torch.float32,
+                             device=qkv.device) if n > 80 else None)
     mask32 = None if mask is None else _f32(mask)
     _build.check(
         lib.cgt_attention_bwd(_ptr(qkv), _ptr(d_attn), _ptr(mask32),

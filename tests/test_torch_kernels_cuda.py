@@ -235,8 +235,9 @@ K3_SHAPES = [  # (batch, tokens, width, heads, mask: True causal, "random")
     (2, 77, 512, 8, True),
     (2, 197, 768, 12, False),
     (1, 256, 256, 4, False),
-    # the attention backward's edges: its buckets of 8-key tiles (3, 4, 10,
-    # 16; past 128 tokens the split launches, 26 and 32) and 16-row strips
+    # the attention backward's edges: its buckets of 8-key tiles (3, 4 and
+    # 10 in one launch; past 80 tokens the split launches, 32) and 16-row
+    # strips
     (2, 1, 128, 2, "random"),
     (2, 15, 128, 2, True),
     (2, 16, 128, 2, "random"),
@@ -244,6 +245,8 @@ K3_SHAPES = [  # (batch, tokens, width, heads, mask: True causal, "random")
     (4, 24, 128, 2, "random"),
     (2, 33, 128, 2, True),
     (2, 77, 128, 2, "random"),
+    (2, 80, 128, 2, True),
+    (2, 81, 128, 2, "random"),
     (2, 128, 128, 2, True),
     (2, 129, 128, 2, "random"),
     (1, 256, 128, 2, True),
@@ -316,8 +319,8 @@ def test_backward_kernels_repeat_bit_for_bit(device):
 
 
 def test_attention_backward_repeats_bit_for_bit_past_128_tokens(device):
-    """K3 past 128 tokens, where the attention backward's two sides run as
-    two launches with the row statistics between them."""
+    """K3 at 197 tokens, past the 80 where the attention backward's two
+    sides run as two launches with the row statistics between them."""
     p = _inputs(2, 197, 256, torch.float32, device)
     args = (p["x"], p["ln_scale"], p["ln_bias"], p["w_qkv"], p["b_qkv"],
             p["w_out"], p["mask"], 4, _dout(p))
