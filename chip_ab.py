@@ -14,7 +14,9 @@ its ``build/kernels``), then times the cells of ``CELLS`` with
 cell, then, as its last line, one JSON object with the card and every run's
 times. K1, K5, K7 and K8 share the attention core; K1, K2 and K8 share the
 GEMM of ``ln_gemm.cu``, whose bf16 and fp32 paths are separate, so the fp32
-cells control a bf16 change and K5 and K7 a GEMM change. Its fp32 products
+cells control a bf16 change and K5 and K7 a GEMM change. K5 and K6 (at
+ViT-B/16 B=32 and 512, bf16, the serving dtype) alone run the int8 GEMM of
+``int8_block.cu``, which the other cells control. Its fp32 products
 run the 3xTF32 core of ``gemm_tf32.cuh``, as K3 and K4 (the backward
 kernels, dx only as the prompt learners launch them, at the trimmed text
 tower's CoOp step B=100 and CoCoOp chunk B=256, and K3 fp32 at B=100 on
@@ -29,6 +31,7 @@ step's image encode.
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -45,6 +48,9 @@ CELLS = [
     ("K1 ViT B=512 fp32", "fused_ln_attention_block", 512, 197, 768, 12, False, "fp32"),
     ("K1 ViT B=32 fp32", "fused_ln_attention_block", 32, 197, 768, 12, False, "fp32"),
     ("K5 ViT B=512 bf16", "q8_ln_attention_block", 512, 197, 768, 12, False, "bf16"),
+    ("K5 ViT B=32 bf16", "q8_ln_attention_block", 32, 197, 768, 12, False, "bf16"),
+    ("K6 ViT B=512 bf16", "q8_ln_mlp", 512, 197, 768, 12, False, "bf16"),
+    ("K6 ViT B=32 bf16", "q8_ln_mlp", 32, 197, 768, 12, False, "bf16"),
     ("K8 ViT B=512 bf16", "fused_attention_block", 512, 197, 768, 12, False, "bf16"),
     ("K8 ViT B=512 fp32", "fused_attention_block", 512, 197, 768, 12, False, "fp32"),
     ("K2 ViT B=512 bf16", "fused_ln_mlp", 512, 197, 768, 12, False, "bf16"),
@@ -110,7 +116,7 @@ def _call(kernel, b, n, d, heads, causal, dtype_name, device, cs):
         mask = (torch.triu(torch.full((n, n), float("-inf")), 1).to(device)
                 if causal else None)
         return lambda: fa.flash_attention(q, k, v, mask)
-    if kernel == "q8_ln_attention_block":
+    if kernel.startswith("q8_"):
         p = cs._q8_block_inputs(b, n, d, dtype_name, device, seed=900)
     else:
         p = cs._block_inputs(b, n, d, causal, dtype, device, seed=900)
@@ -125,6 +131,8 @@ def _call(kernel, b, n, d, heads, causal, dtype_name, device, cs):
         return lambda: fn(*args, param_grads=False)
     fn = getattr(ib if kernel.startswith("q8_") else fa, kernel)
     args = cs._block_args(kernel, p, heads)
+    if kernel.startswith("q8_") and len(args) > len(inspect.signature(fn).parameters):
+        args = args[:-2]  # a checkout whose K5/K6 take no K-major weight copies
     return lambda: fn(*args)
 
 

@@ -48,9 +48,12 @@ exits non-zero before printing any result. Phases, each raising on failure:
    directly with each tile shape and both io dtypes at the edges of its
    tiles (GEMM_BWD_SWEEP_*), printing the largest error per product and
    dtype, then the dx products timed with each tile shape
-   (GEMM_BWD_TILE_CELLS); and a ``torch.profiler`` trace of three calls
-   each of K1, K2 and K8 at ViT-B/16 B=512 in bf16 and fp32, of K5 in bf16
-   and of K3 and K4 in fp32 (dx only and all gradients, text B=256 N=24),
+   (GEMM_BWD_TILE_CELLS); the ``[int8 gemm]`` cells: each int8 product of
+   K5 and K6 (Q8_GEMM_PRODUCTS) called directly at ViT-B/16 B=32 and
+   B=512 in bf16, held bit for bit to its plain version at B=32 and timed
+   beside its own bound and ``torch._int_mm``; and a ``torch.profiler``
+   trace of three calls each of K1, K2 and K8 at ViT-B/16 B=512 in bf16
+   and fp32, of K5 and K6 in bf16 and of K3 and K4 in fp32 (dx only and all gradients, text B=256 N=24),
    printing the device time per call of each CUDA kernel by name, and for
    K3 its attention backward's time beside that part's own bound;
 3. towers: a ViT-B/16 ``encode_image`` (fp32, 32 images at 224), its int8
@@ -199,6 +202,15 @@ Q8_SHAPES = [
     ("vit-b16", 512, 197, 768, 12, "bf16"),
     ("vit-b16", 32, 197, 768, 12, "fp32"),
 ]
+# the four int8 products of K5 and K6 at ViT-B/16's width (D = 768) for the
+# [int8 gemm] cells: (name, N, K, epilogue, group_k), group_k None for one
+# group over all of K, 64 (a head) for the out-projection
+Q8_GEMM_PRODUCTS = [("qkv", 2304, 768, "qkv", None),
+                    ("out-proj", 768, 768, "resid_attn", 64),
+                    ("c_fc", 3072, 768, "gelu", None),
+                    ("c_proj", 768, 3072, "resid_mlp", None)]
+
+
 # K5/K6 kernel vs plain: the int8 products are exact on both sides; an fp32
 # sum taken in another order (LN statistics, softmax, p·v) can move one
 # activation across a quantization boundary, which moves the outputs it
@@ -383,7 +395,7 @@ def phase_build():
             spills = [int(s) for s in re.findall(r"(\d+) bytes spill", ptxas)]
             log(f"[build] ptxas {source}: {len(regs)} kernels, {min(regs)}-"
                 f"{max(regs)} registers a thread, {sum(spills)} bytes of spills")
-            if source.startswith("attention_bwd"):
+            if source.startswith(("attention_bwd", "int8_block")):
                 _log_instantiations(source, ptxas)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -444,13 +456,15 @@ def _block_args(kernel, p, heads):
     if kernel == "fused_attention_block":
         return (p["x"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], heads,
                 p["mask"])
+    # K5/K6 with the weights' K-major copies, as the int8 tower passes them
     if kernel == "q8_ln_attention_block":
         wq, wo = p["w_qkv"], p["w_out"]
         return (p["x"], p["ln_scale"], p["ln_bias"], wq["q"], wq["scale"],
-                p["b_qkv"], wo["q"], wo["scale"], p["b_out"], heads, p["mask"])
+                p["b_qkv"], wo["q"], wo["scale"], p["b_out"], heads, p["mask"],
+                wq["qt"], wo["qt"])
     wf, wp = p["w_fc"], p["w_proj"]  # q8_ln_mlp
     return (p["x"], p["ln_scale"], p["ln_bias"], wf["q"], wf["scale"], p["b_fc"],
-            wp["q"], wp["scale"], p["b_proj"])
+            wp["q"], wp["scale"], p["b_proj"], wf["qt"], wp["qt"])
 
 
 def _k1_library(p, heads):
@@ -1054,8 +1068,8 @@ def _short_kernel_name(name: str) -> str:
 
 def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
     """``torch.profiler`` (CUDA activity) over ``calls`` calls each of K1,
-    K2 and K8 at ViT-B/16 B=512 in bf16 and fp32, of K5 in bf16 and of K3
-    and K4 (dx only, and with every gradient) in fp32 at the trimmed text
+    K2 and K8 at ViT-B/16 B=512 in bf16 and fp32, of K5 and K6 in bf16 and
+    of K3 and K4 (dx only, and with every gradient) in fp32 at the trimmed text
     tower's CoCoOp chunk, after a warm-up call: prints the device time of
     each CUDA kernel by name, per call, with the number of launches the trace
     holds of it."""
@@ -1107,6 +1121,8 @@ def phase_profile(device, b=512, n=197, d=768, heads=12, calls=3):
                 p = _q8_block_inputs(b, n, d, dtype_name, device, seed=900)
                 args = _block_args("q8_ln_attention_block", p, heads)
                 profiled("K5 bf16", lambda: ib.q8_ln_attention_block(*args))
+                args = _block_args("q8_ln_mlp", p, heads)
+                profiled("K6 bf16", lambda: ib.q8_ln_mlp(*args))
             del p, args
             torch.cuda.empty_cache()
     # K3 and K4 as a CoCoOp chunk launches them (dx only), and with every
@@ -1277,7 +1293,8 @@ def phase_bwd_kernels(device, peaks):
 
 def _q8_block_inputs(b, n, d, dtype_name, device, seed, causal=False):
     """K5/K6 inputs: K1/K2's, with the four products quantized per output
-    channel (``quantize_weight``) and, for the library yardstick, each int8
+    channel (``quantize_weight``), each with its K-major copy "qt" (as
+    ``quantize_visual`` makes it) and, for the library yardstick, each int8
     weight also laid out column-major as ``torch._int_mm`` takes it."""
     import torch
 
@@ -1285,10 +1302,11 @@ def _q8_block_inputs(b, n, d, dtype_name, device, seed, causal=False):
 
     p = _block_inputs(b, n, d, causal, torch.float32, device, seed)
     p["x"] = p["x"].to({"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name])
-    for key in ("w_qkv", "w_fc", "w_proj"):
+    for key in ("w_qkv", "w_out", "w_fc", "w_proj"):
         p[key] = quantize_weight(p[key])
-        p[key]["cm"] = p[key]["q"].t().contiguous().t()
-    p["w_out"] = quantize_weight(p["w_out"])
+        p[key]["qt"] = p[key]["q"].t().contiguous()
+    for key in ("w_qkv", "w_fc", "w_proj"):
+        p[key]["cm"] = p[key]["qt"].t()
     dh = 64
     p["w_out"]["cm"] = [p["w_out"]["q"][i:i + dh].t().contiguous().t()
                         for i in range(0, d, dh)]
@@ -1444,6 +1462,93 @@ def phase_q8_kernels(device, peaks):
         del p, runs
         torch.cuda.empty_cache()
     return cells
+
+
+def _q8_gemm_operands(m, n, k, groups, dtype, device, seed):
+    """Random int8 A [M, K] and W [K, N] (the JAX layout), fp32 row scales
+    [M, groups], column scales and bias [N], and a residual [M, N] in the
+    working type, made on the card."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "a": torch.randint(-127, 128, (m, k), generator=g, device=device).to(torch.int8),
+        "w": torch.randint(-127, 128, (k, n), generator=g, device=device).to(torch.int8),
+        "row_scale": torch.rand(m, groups, generator=g, device=device) * 1e-2 + 1e-4,
+        "col_scale": torch.rand(n, generator=g, device=device) * 1e-2 + 1e-4,
+        "bias": 0.1 * torch.randn(n, generator=g, device=device),
+        "resid": torch.randn(m, n, generator=g, device=device).to(dtype),
+    }
+
+
+def phase_q8_gemm(device, peaks, n_tokens=197, dtype_name="bf16"):
+    """``[int8 gemm]`` cells: each product of K5 and K6 (Q8_GEMM_PRODUCTS)
+    at ViT-B/16 B=32 and B=512 in the serving dtype, called through the
+    wrapper's ``_q8_gemm`` with W's K-major copy made beforehand, as the int8
+    tower makes it (the copy, which a call without it would make, is timed
+    apart), timed beside
+    its own bound and ``torch._int_mm`` on the same operands (int32 out, no
+    scales or epilogue: a yardstick only, which the port never calls). At
+    B=32 each is first held to ``q8_gemm_plain``: bit for bit, QuickGELU to
+    the fp32 tolerance."""
+    import torch
+
+    from clip_gp_tpu_torch.ops import _build
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    with torch.no_grad():
+        for b in (32, 512):
+            m = b * n_tokens
+            for product, n, k, epilogue, group_k in Q8_GEMM_PRODUCTS:
+                groups = k // (group_k or k)
+                p = _q8_gemm_operands(m, n, k, groups, dtype, device, seed=m + n)
+                wt = p["w"].t().contiguous()
+                out_dtype = torch.float32 if epilogue == "gelu" else dtype
+                out = torch.empty(m, n, dtype=out_dtype, device=device)
+                resid = p["resid"] if epilogue.startswith("resid") else None
+
+                def run():
+                    ib._q8_gemm(lib, p["a"], p["w"], p["row_scale"], p["col_scale"],
+                                p["bias"], out, fa.GEMM_EPILOGUES.index(epilogue),
+                                stream, group_k=group_k, resid=resid, wt=wt)
+
+                if b == 32:
+                    run()
+                    ref = ib.q8_gemm_plain(p["a"], p["w"], p["row_scale"],
+                                           p["col_scale"], p["bias"], epilogue,
+                                           out_dtype, group_k=group_k, resid=resid)
+                    torch.cuda.synchronize()
+                    ok = (compare(out, ref, *TOLERANCES["fp32"])[2]
+                          if epilogue == "gelu" else torch.equal(out, ref))
+                    if not ok:
+                        raise RuntimeError(f"int8 gemm {product} B={b}: kernel "
+                                           "disagrees with q8_gemm_plain")
+                    del ref
+                ms = time_ms(run)
+                w_cm = p["w"].t().contiguous().t()
+                int_mm_ms = time_ms(lambda: torch._int_mm(p["a"], w_cm))
+                copy_ms = time_ms(lambda: p["w"].t().contiguous())
+                ops = 2 * m * n * k
+                nbytes = (m * k + n * k + 4 * m * groups + 8 * n
+                          + m * n * out.element_size()
+                          + (m * n * resid.element_size() if resid is not None else 0))
+                t_ops = ops / peaks["int8"] * 1e3
+                t_bytes = nbytes / peaks["bytes"] * 1e3
+                bound = max(t_ops, t_bytes)
+                log(f"[int8 gemm] {product} ViT-B/16 B={b} M={m} N={n} K={k}"
+                    f"{f' group_k={group_k}' if group_k else ''} {dtype_name}: "
+                    f"kernel_ms {ms:.4f} ({ops / ms / 1e9:.1f} TOP/s; W's K-major "
+                    f"copy, not in it, {copy_ms:.4f}) bound_ms {bound:.4f} "
+                    f"({'operations' if t_ops >= t_bytes else 'bytes'}, "
+                    f"{100 * bound / ms:.1f}% of the kernel's time) "
+                    f"torch._int_mm {int_mm_ms:.4f} ms (kernel/int_mm "
+                    f"{ms / int_mm_ms:.2f}x)")
+                del p, out, resid, w_cm, wt
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2118,6 +2223,7 @@ def main() -> int:
     cells = (phase_kernels(device, peaks) + phase_bwd_kernels(device, peaks)
              + phase_q8_kernels(device, peaks)
              + phase_attention_kernels(device, peaks))
+    phase_q8_gemm(device, peaks)
     phase_core_sweep(device)
     phase_attention_bwd_sweep(device)
     phase_gemm_sweep(device)

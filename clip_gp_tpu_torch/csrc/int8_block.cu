@@ -7,13 +7,14 @@
 //             scale), ±127). Rows of the working type T (LN of x) or of fp32
 //             (the QuickGELU hidden). IEEE division and rintf (round half to
 //             even, as jnp.round): CUDA's roundf rounds half away from zero.
-//   gemm:     out[M,N] = epilogue(Σ_g (A·W)_g · row_scale[m, g] ·
-//             col_scale[n]) with A int8 [M,K], W int8 [K,N] (the JAX
-//             right-multiply layout), the products exact in int32 and the
-//             sum over groups of `group_k` columns of K in fp32. One group
-//             (group_k = K) for qkv, c_fc and c_proj; one group per 64-wide
-//             head for K5's out-projection, whose activation scale changes
-//             every head, so a single int8 sum over all of D would be wrong.
+//   gemm:     out[M,N] = epilogue(Σ_g (A·Wᵀ)_g · row_scale[m, g] ·
+//             col_scale[n]) with A int8 [M,K] and Wt int8 [N,K] (the JAX
+//             right-multiply weight [K,N] transposed: both operands
+//             K-major), the products exact in int32 and the sum over groups
+//             of `group_k` columns of K in fp32. One group (group_k = K) for
+//             qkv, c_fc and c_proj; one group per 64-wide head for K5's
+//             out-projection, whose activation scale changes every head, so
+//             a single int8 sum over all of D would be wrong.
 //             Epilogues, in fp32 with the Pallas kernels' order:
 //               K5 qkv:      T(acc + b)
 //               K6 c_fc:     fp32 QuickGELU(acc + b)   (the [T,4D] hidden)
@@ -22,19 +23,22 @@
 //             Multiplies and adds are __fmul_rn/__fadd_rn, so nvcc cannot
 //             contract them into FMAs the plain version does not make.
 //
-// What bounds it on an H100: operations. At ViT-B/16 batch 512 K5 does
-// 8·T·D² int8 operations (and the attention core 4·B·N²·D bf16 FLOPs) and K6
-// 16·T·D², against some 0.3 and 0.5 GB moved. This first version does what a
-// simple kernel can: 128x128 output tiles of mma.sync.m16n8k32 (int8 tensor
-// cores, int32 accumulation) from 32-deep shared-memory tiles, W's tile
-// transposed in registers (__byte_perm) on its way into shared memory so both
-// operands are K-contiguous, and every epilogue applied in registers before
-// the single store. Not yet done, and left for the PRs that make it fast:
-// wgmma and TMA, cp.async pipelining, and keeping the fp32 [T,4D] hidden
-// (1.24 GB at B=512) out of device memory.
+// What bounds it on an H100: operations for qkv and c_proj (357 and 476 G
+// int8 operations at ViT-B/16 batch 512, 0.18 and 0.24 ms at 1,979 TOP/s),
+// bytes for the out-projection (the residual read and the output written,
+// 0.12 ms at 3.35 TB/s) and for c_fc (its fp32 [T,4D] hidden, 1.24 GB: 0.39
+// ms). The design keeps the int8 tensor cores fed: A and Wt k-tiles of 64
+// bytes stream through a ring of 4 shared-memory stages by 16-byte cp.async,
+// with three tiles in flight while the fourth is multiplied; both operands
+// are K-major, so ldmatrix.x4 brings each fragment in one instruction from
+// rows padded to 80 bytes (no bank conflicts); scales and bias are staged in
+// shared memory once per tile; the epilogue writes two adjacent outputs a
+// thread from registers. The fp32 hidden stays in device memory (why: see
+// ROADMAP, queue 2).
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace cgt;
 
@@ -87,53 +91,123 @@ __global__ void __launch_bounds__(256)
 }
 
 // ----------------------------------------------------------------- gemm ----
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDS = BK + 16;  // shared-memory row stride in bytes: the
-                              // fragment loads of a warp hit distinct banks
+constexpr int BM = 128, BN = 128;
+constexpr int BK = 64;       // k-tile bytes: two k32 steps of mma.sync
+constexpr int STAGES = 4;    // k-tiles in the ring: three in flight
+constexpr int THREADS = 256; // 8 warps as 2 (rows) x 4 (cols) of 64x32
+constexpr int LDS = BK + 16; // 80-byte shared rows: the 8 rows an ldmatrix
+                             // phase reads start in 8 distinct bank groups
+constexpr int A_STAGE = BM * LDS, B_STAGE = BN * LDS;
+constexpr int RING_BYTES = STAGES * (A_STAGE + B_STAGE);  // 80 KB
+// the 16-byte chunks of one operand's k-tile each thread copies
+constexpr int CHUNKS = BM * BK / 16 / THREADS;  // 2
+constexpr int MAX_SMEM = 200 * 1024;  // the opt-in: ring + scales
 
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
-                                       const uint32_t* b) {
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <int DT>
+using WorkT = typename std::conditional<DT == kBF16, __nv_bfloat16, float>::type;
+
+// two adjacent outputs (n even, N % 4 == 0: both inside the row) of one
+// epilogue, in fp32 with the Pallas kernels' order; one 8-byte (fp32) or
+// 4-byte (bf16) store
 template <int EPI, typename T, typename OutT>
-__device__ __forceinline__ OutT epilogue(float acc, float b, const T* resid,
-                                         size_t idx) {
+__device__ __forceinline__ void store_pair(OutT* out, const T* resid, size_t idx,
+                                           float v0, float v1, float b0,
+                                           float b1) {
+  float r0 = 0.f, r1 = 0.f;
+  if constexpr (EPI == kEpiResidAttn || EPI == kEpiResidMlp) {
+    r0 = to_f32(resid[idx]);
+    r1 = to_f32(resid[idx + 1]);
+  }
+  float o0, o1;
   if constexpr (EPI == kEpiQkv) {
-    return from_f32<OutT>(__fadd_rn(acc, b));
+    o0 = __fadd_rn(v0, b0);
+    o1 = __fadd_rn(v1, b1);
   } else if constexpr (EPI == kEpiGelu) {
-    const float h = __fadd_rn(acc, b);
-    const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, h))));
-    return __fmul_rn(h, s);
+    const float h0 = __fadd_rn(v0, b0), h1 = __fadd_rn(v1, b1);
+    o0 = __fmul_rn(h0, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, h0)))));
+    o1 = __fmul_rn(h1, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, h1)))));
   } else if constexpr (EPI == kEpiResidAttn) {
-    return from_f32<OutT>(__fadd_rn(__fadd_rn(to_f32(resid[idx]), acc), b));
+    o0 = __fadd_rn(__fadd_rn(r0, v0), b0);
+    o1 = __fadd_rn(__fadd_rn(r1, v1), b1);
   } else {
-    return from_f32<OutT>(__fadd_rn(to_f32(resid[idx]), __fadd_rn(acc, b)));
+    o0 = __fadd_rn(r0, __fadd_rn(v0, b0));
+    o1 = __fadd_rn(r1, __fadd_rn(v1, b1));
+  }
+  if constexpr (std::is_same<OutT, float>::value) {
+    *reinterpret_cast<float2*>(out + idx) = make_float2(o0, o1);
+  } else {
+    *reinterpret_cast<uint32_t*>(out + idx) = pack_bf16(o0, o1);
   }
 }
 
-// 8 warps as 2 (rows) x 4 (cols); each warp owns a 64x32 block of the
-// 128x128 output tile: 4x4 m16n8 int32 accumulators, flushed into fp32 ones
-// at the end of every group. Requires K % 32 == 0, group_k % 32 == 0,
-// N % 4 == 0 and 16-byte aligned A rows (checked below).
-template <int EPI, typename T, typename OutT>
-__global__ void __launch_bounds__(256)
-    q8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+// out[M,N] = epilogue(Σ_g (A·Wᵀ)_g · row_scale[m, g] · col_scale[n]) with A
+// int8 [M,K] and Wt int8 [N,K], both K-major. A 128x128 output tile a block;
+// A and Wt k-tiles of 64 bytes stream through a ring of 4 shared-memory
+// stages filled by 16-byte cp.async (rows past M or N read as zero), one
+// __syncthreads a k-tile. Fragments come by ldmatrix.x4 (the b16 8x8 view
+// of 8 rows of 16 bytes is the s8 m16n8k32 fragment of both operands). The
+// int32 sums are scaled into fp32 ones at the end of every group (GROUPED:
+// group_k < K, K5's out-projection) or once after the last k-tile. The
+// block's column scales, bias and row scales [BM, groups] are staged in
+// shared memory before the first k-tile. Requires K % 32 == 0, group_k %
+// 32 == 0 and 16-byte aligned A and Wt (checked by cgt_q8_gemm).
+template <int EPI, int DT, int GROUPED>
+__global__ void __launch_bounds__(THREADS, GROUPED ? 1 : 2)
+    q8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Wt,
                    const float* __restrict__ row_scale,
                    const float* __restrict__ col_scale,
-                   const float* __restrict__ bias, const T* __restrict__ resid,
-                   OutT* __restrict__ out, int M, int N, int K, int group_k) {
-  __shared__ __align__(16) int8_t As[BM * LDS];  // [m][k]
-  __shared__ __align__(16) int8_t Bs[BN * LDS];  // [n][k]: W transposed
+                   const float* __restrict__ bias,
+                   const WorkT<DT>* __restrict__ resid,
+                   typename std::conditional<EPI == kEpiGelu, float, WorkT<DT>>::type*
+                       __restrict__ out,
+                   int M, int N, int K, int group_k) {
+  using T = WorkT<DT>;
+  using OutT = typename std::conditional<EPI == kEpiGelu, float, T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* As = reinterpret_cast<int8_t*>(smem);
+  int8_t* Bs = As + STAGES * A_STAGE;
+  float* cs_s = reinterpret_cast<float*>(smem + RING_BYTES);  // [BN]
+  float* b_s = cs_s + BN;                                       // [BN]
+  float* rs_s = b_s + BN;                                       // [BM][groups]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int groups = K / group_k;
+  const int ktiles = (K + BK - 1) / BK;
+
+  for (int i = tid; i < BN; i += THREADS) {
+    const int n = n0 + i;
+    cs_s[i] = n < N ? col_scale[n] : 0.f;
+    b_s[i] = n < N ? bias[n] : 0.f;
+  }
+  for (int i = tid; i < BM * groups; i += THREADS) {
+    const int m = m0 + i / groups;
+    rs_s[i] = m < M ? row_scale[(size_t)m * groups + i % groups] : 0.f;
+  }
+
+  auto load_tile = [&](int kt) {
+    const int k0 = kt * BK, slot = kt % STAGES;
+    int8_t* as = As + slot * A_STAGE;
+    int8_t* bs = Bs + slot * B_STAGE;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int c = tid + THREADS * i, row = c >> 2, kc = (c & 3) * 16;
+      const int gk = k0 + kc, gm = m0 + row, gn = n0 + row;
+      const bool oka = gm < M && gk < K, okb = gn < N && gk < K;
+      cp_async16_zfill(as + row * LDS + kc, oka ? A + (size_t)gm * K + gk : A, oka);
+      cp_async16_zfill(bs + row * LDS + kc, okb ? Wt + (size_t)gn * K + gk : Wt, okb);
+    }
+  };
 
   int acc[4][4][4];
   float facc[4][4][4];
@@ -147,117 +221,145 @@ __global__ void __launch_bounds__(256)
         facc[i][j][c] = 0.f;
       }
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {  // A tile: 128 rows x 32 bytes, 16 bytes a thread
-      const int row = tid >> 1, kc = (tid & 1) * 16, gm = m0 + row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M) v = *reinterpret_cast<const uint4*>(A + (size_t)gm * K + k0 + kc);
-      *reinterpret_cast<uint4*>(As + row * LDS + kc) = v;
-    }
-    {  // W tile: 32 k x 128 n; a thread reads 4 k-rows of 4 columns and
-       // writes them transposed, 4 k-contiguous bytes per column
-      const int kq = tid & 7, nq = tid >> 3, gn = n0 + nq * 4;
-      uint32_t r[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r[j] = gn < N ? *reinterpret_cast<const uint32_t*>(
-                            W + (size_t)(k0 + kq * 4 + j) * N + gn)
-                      : 0u;
-      const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
-      const uint32_t cols[4] = {
-          __byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-          __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        *reinterpret_cast<uint32_t*>(Bs + (nq * 4 + c) * LDS + kq * 4) = cols[c];
-    }
-    __syncthreads();
-    uint32_t fa[4][4], fb[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int8_t* p = As + (wm + i * 16 + g) * LDS + t4 * 4;
-      fa[i][0] = *reinterpret_cast<const uint32_t*>(p);
-      fa[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-      fa[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-      fa[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int8_t* p = Bs + (wn + j * 8 + g) * LDS + t4 * 4;
-      fb[j][0] = *reinterpret_cast<const uint32_t*>(p);
-      fb[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-    }
+  // fp32 sum += int32 sum · row scale · column scale, for group grp
+  auto flush = [&](int grp) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], fa[i], fb[j]);
-    __syncthreads();
+      for (int r = 0; r < 2; ++r) {
+        const float rs = rs_s[(wm + 16 * i + g + 8 * r) * groups + grp];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float cs = cs_s[wn + 8 * j + 2 * t4 + e];
+            const float v = __fmul_rn(__fmul_rn((float)acc[i][j][2 * r + e], rs), cs);
+            facc[i][j][2 * r + e] = GROUPED ? __fadd_rn(facc[i][j][2 * r + e], v) : v;
+            acc[i][j][2 * r + e] = 0;
+          }
+      }
+  };
 
-    if ((k0 + BK) % group_k == 0) {  // end of a group: scale into fp32
-      const int grp = (k0 + BK) / group_k - 1;
+  // ldmatrix.x4 addresses of this lane within a stage: A rows 0-15 of a
+  // 16-row tile at k bytes 0 and 16; Wt rows 0-7 at k bytes 0 and 16, then
+  // rows 8-15 (the b0/b1 fragments of two 8-column tiles)
+  const int a_ld = (wm + (lane & 15)) * LDS + (lane >> 4) * 16;
+  const int b_ld = (wn + (lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 16;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load_tile(s);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 2>();
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    // tile kt visible to every warp (and the staged scales, at kt = 0);
+    // every warp done with tile kt - 1, whose slot the next copy refills
+    __syncthreads();
+    if (kt + STAGES - 1 < ktiles) load_tile(kt + STAGES - 1);
+    cp_async_commit();
+
+    const int slot = kt % STAGES;
+    const int8_t* as = As + slot * A_STAGE + a_ld;
+    const int8_t* bs = Bs + slot * B_STAGE + b_ld;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      const int k_end = kt * BK + kk + 32;
+      if (k_end > K) break;  // K % 64 == 32: the last tile's second half
+      uint32_t a[4][4], b[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ldmatrix_x4(a[i], as + i * 16 * LDS + kk);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) ldmatrix_x4(b[j], bs + j * 16 * LDS + kk);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int m = m0 + wm + i * 16 + g + (c >= 2 ? 8 : 0);
-          const float rs = m < M ? row_scale[(size_t)m * groups + grp] : 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n0 + wn + j * 8 + t4 * 2 + (c & 1);
-            const float cs = n < N ? col_scale[n] : 0.f;
-            facc[i][j][c] = __fadd_rn(
-                facc[i][j][c], __fmul_rn(__fmul_rn((float)acc[i][j][c], rs), cs));
-            acc[i][j][c] = 0;
-          }
+        for (int j = 0; j < 2; ++j) {
+          mma_s8(acc[i][2 * j], a[i], b[j][0], b[j][1]);
+          mma_s8(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
         }
+      if (GROUPED && k_end % group_k == 0) flush(k_end / group_k - 1);
     }
+    cp_async_wait<STAGES - 2>();
   }
+  cp_async_wait<0>();  // no copy outlives the ring (the groups left are empty)
+  if (!GROUPED) flush(0);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int m = m0 + wm + i * 16 + g + (c >= 2 ? 8 : 0);
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + wm + 16 * i + g + 8 * r;
       if (m >= M) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + j * 8 + t4 * 2 + (c & 1);
-        if (n < N) {
-          const size_t idx = (size_t)m * N + n;
-          out[idx] = epilogue<EPI, T, OutT>(facc[i][j][c], bias[n], resid, idx);
-        }
+        const int nl = wn + 8 * j + 2 * t4, n = n0 + nl;
+        if (n < N)
+          store_pair<EPI, T, OutT>(out, resid, (size_t)m * N + n,
+                                   facc[i][j][2 * r], facc[i][j][2 * r + 1],
+                                   b_s[nl], b_s[nl + 1]);
       }
     }
 }
 
-template <int EPI, typename T>
+// the dynamic shared-memory opt-in (above 48 KB) is a property of the
+// function on a device: set once per instantiation and device
+template <int EPI, int DT, int GROUPED>
+int opt_in_smem() {
+  static unsigned long long opted_in = 0;  // bit d: device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && ((opted_in >> dev) & 1ull)) return 0;
+  err = cudaFuncSetAttribute(q8_gemm_kernel<EPI, DT, GROUPED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64) opted_in |= 1ull << dev;
+  return 0;
+}
+
+template <int EPI, int DT, int GROUPED>
 int launch_gemm(const void* a, const void* w, const void* rs, const void* cs,
                 const void* bias, const void* resid, void* out, int M, int N,
                 int K, int group_k, cudaStream_t s) {
+  using T = WorkT<DT>;
   using OutT = typename std::conditional<EPI == kEpiGelu, float, T>::type;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM), block(256);
-  q8_gemm_kernel<EPI, T, OutT><<<grid, block, 0, s>>>(
+  const size_t smem = RING_BYTES + sizeof(float) * (2 * BN + (size_t)BM * (K / group_k));
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int err = opt_in_smem<EPI, DT, GROUPED>();
+  if (err != 0) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  q8_gemm_kernel<EPI, DT, GROUPED><<<grid, THREADS, smem, s>>>(
       (const int8_t*)a, (const int8_t*)w, (const float*)rs, (const float*)cs,
       (const float*)bias, (const T*)resid, (OutT*)out, M, N, K, group_k);
   return (int)cudaGetLastError();
+}
+
+template <int EPI, int GROUPED>
+int dispatch_dtype(const void* a, const void* w, const void* rs, const void* cs,
+                   const void* bias, const void* resid, void* out, int M, int N,
+                   int K, int group_k, int dtype, cudaStream_t s) {
+  if (dtype == kF32)
+    return launch_gemm<EPI, kF32, GROUPED>(a, w, rs, cs, bias, resid, out, M, N,
+                                           K, group_k, s);
+  if constexpr (EPI != kEpiGelu) {  // the hidden is fp32 in either type
+    if (dtype == kBF16)
+      return launch_gemm<EPI, kBF16, GROUPED>(a, w, rs, cs, bias, resid, out, M,
+                                              N, K, group_k, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int EPI>
 int dispatch_gemm(const void* a, const void* w, const void* rs, const void* cs,
                   const void* bias, const void* resid, void* out, int M, int N,
                   int K, int group_k, int dtype, cudaStream_t s) {
-  if (dtype == kF32)
-    return launch_gemm<EPI, float>(a, w, rs, cs, bias, resid, out, M, N, K,
-                                   group_k, s);
-  if constexpr (EPI != kEpiGelu) {  // the hidden is fp32 in either type
-    if (dtype == kBF16)
-      return launch_gemm<EPI, __nv_bfloat16>(a, w, rs, cs, bias, resid, out, M,
-                                             N, K, group_k, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (group_k == K)
+    return dispatch_dtype<EPI, 0>(a, w, rs, cs, bias, resid, out, M, N, K,
+                                  group_k, dtype, s);
+  return dispatch_dtype<EPI, 1>(a, w, rs, cs, bias, resid, out, M, N, K, group_k,
+                                dtype, s);
 }
 
 }  // namespace
@@ -283,13 +385,17 @@ extern "C" int cgt_q8_quantize(const void* x, const void* gamma,
   return (int)cudaGetLastError();
 }
 
-// row_scale is [M, K / group_k]; resid is read by the residual epilogues
-// only and may be null for the others; dtype is out's type (fp32 for c_fc)
+// a int8 [M,K] and w int8 [N,K] (the JAX weight [K,N] transposed: both
+// operands K-major), 16-byte aligned; row_scale is [M, K / group_k]; resid
+// is read by the residual epilogues only and may be null for the others;
+// dtype is out's type (fp32 for c_fc). K and group_k are multiples of 32,
+// group_k divides K, N % 4 == 0.
 extern "C" int cgt_q8_gemm(const void* a, const void* w, const void* row_scale,
                            const void* col_scale, const void* bias,
                            const void* resid, void* out, int M, int N, int K,
                            int group_k, int dtype, int epilogue, void* stream) {
-  if (K % BK || group_k < BK || group_k % BK || K % group_k || N % 4)
+  if (M < 1 || N < 1 || K < 1 || K % 32 || group_k < 32 || group_k % 32 ||
+      K % group_k || N % 4 || (((uintptr_t)a | (uintptr_t)w) & 15))
     return (int)cudaErrorInvalidValue;
   const bool has_resid = epilogue == kEpiResidAttn || epilogue == kEpiResidMlp;
   if (has_resid != (resid != nullptr)) return (int)cudaErrorInvalidValue;

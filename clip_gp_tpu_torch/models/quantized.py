@@ -64,13 +64,21 @@ def int8_linear(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     return y.to(out_dtype)
 
 
+def _with_k_major(wq: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``wq`` with "qt": its int8 weight transposed to [O, I], contiguous,
+    the K-major layout the int8 GEMM of the K5/K6 kernels reads."""
+    return {**wq, "qt": wq["q"].t().contiguous()}
+
+
 def quantize_visual(model, arch: ClipArchitecture) -> Params:
     """Quantize the ViT tower's block products once, up front.
 
     Returns {"visual": the model's ``VisionTransformer`` (its stem and
     epilogue are shared), "blocks": one dict per layer shaped like the JAX
     package's block params, with each product weight replaced by
-    {"q", "scale"}}."""
+    {"q", "scale", "qt"}}: "q" and "scale" as the JAX package's, "qt" the
+    K-major copy of "q" that the K5/K6 kernels read, made here once rather
+    than in every call."""
     if not arch.is_vit:
         raise NotImplementedError(
             "the int8 inference path covers the ViT towers only, not "
@@ -85,12 +93,16 @@ def quantize_visual(model, arch: ClipArchitecture) -> Params:
                 "ln_1": {"scale": blk.ln_1.scale, "bias": blk.ln_1.bias},
                 "ln_2": {"scale": blk.ln_2.scale, "bias": blk.ln_2.bias},
                 "attn": {
-                    "w_qkv": quantize_weight(a.w_qkv), "b_qkv": a.b_qkv,
-                    "w_out": quantize_weight(a.w_out), "b_out": a.b_out,
+                    "w_qkv": _with_k_major(quantize_weight(a.w_qkv)),
+                    "b_qkv": a.b_qkv,
+                    "w_out": _with_k_major(quantize_weight(a.w_out)),
+                    "b_out": a.b_out,
                 },
                 "mlp": {
-                    "c_fc": {"w": quantize_weight(m.c_fc.w), "b": m.c_fc.b},
-                    "c_proj": {"w": quantize_weight(m.c_proj.w), "b": m.c_proj.b},
+                    "c_fc": {"w": _with_k_major(quantize_weight(m.c_fc.w)),
+                             "b": m.c_fc.b},
+                    "c_proj": {"w": _with_k_major(quantize_weight(m.c_proj.w)),
+                               "b": m.c_proj.b},
                 },
             })
     return {"visual": visual, "blocks": blocks}
@@ -121,15 +133,17 @@ def _q8_fused_block(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """K5 then K6 (``ops/int8_block.py``): the activations quantize right
     after the fp32 LN and GELU, the attention output per head."""
     a, mlp = p["attn"], p["mlp"]
+    fc, proj = mlp["c_fc"]["w"], mlp["c_proj"]["w"]
     x = int8_block.q8_ln_attention_block(
         x, p["ln_1"]["scale"], p["ln_1"]["bias"],
         a["w_qkv"]["q"], a["w_qkv"]["scale"], a["b_qkv"],
-        a["w_out"]["q"], a["w_out"]["scale"], a["b_out"], num_heads,
+        a["w_out"]["q"], a["w_out"]["scale"], a["b_out"], num_heads, None,
+        a["w_qkv"]["qt"], a["w_out"]["qt"],
     )
     return int8_block.q8_ln_mlp(
         x, p["ln_2"]["scale"], p["ln_2"]["bias"],
-        mlp["c_fc"]["w"]["q"], mlp["c_fc"]["w"]["scale"], mlp["c_fc"]["b"],
-        mlp["c_proj"]["w"]["q"], mlp["c_proj"]["w"]["scale"], mlp["c_proj"]["b"],
+        fc["q"], fc["scale"], mlp["c_fc"]["b"],
+        proj["q"], proj["scale"], mlp["c_proj"]["b"], fc["qt"], proj["qt"],
     )
 
 

@@ -92,10 +92,45 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(torch.int32) @ b.to(torch.int32)
 
 
+def q8_gemm_plain(a, w, row_scale, col_scale, bias, epilogue: str, out_dtype,
+                  group_k: Optional[int] = None, resid=None):
+    """Plain version of the int8 GEMM of ``csrc/int8_block.cu`` in the
+    kernel's order: ``a`` int8 [M, K], ``w`` int8 [K, N], ``row_scale`` fp32
+    [M, K / group_k] (``group_k`` all of K by default), ``col_scale`` and
+    ``bias`` fp32 [N]. Each group's exact int32 product is scaled as
+    part·row_scale·col_scale; with more than one group the scaled parts are
+    summed from zero in group order. ``epilogue`` names K5's or K6's
+    ("qkv", "gelu", "resid_attn", "resid_mlp"); ``resid`` [M, N] is read by
+    the residual ones."""
+    k = a.shape[1]
+    group_k = group_k or k
+    col_scale = col_scale.float()
+    if group_k == k:
+        acc = int8_matmul(a, w).float() * row_scale.reshape(-1, 1) * col_scale
+    else:
+        acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32,
+                          device=a.device)
+        for grp, k0 in enumerate(range(0, k, group_k)):
+            part = int8_matmul(a[:, k0:k0 + group_k], w[k0:k0 + group_k])
+            acc = acc + part.float() * row_scale[:, grp:grp + 1] * col_scale
+    b = bias.float()
+    if epilogue == "qkv":
+        out = acc + b
+    elif epilogue == "gelu":
+        h = acc + b
+        out = h * torch.sigmoid(1.702 * h)
+    elif epilogue == "resid_attn":
+        out = (resid.float() + acc) + b
+    else:
+        out = resid.float() + (acc + b)
+    return out.to(out_dtype)
+
+
 def q8_ln_attention_block_plain(x, ln_scale, ln_bias, wqkv_q, wqkv_scale, b_qkv,
                                 wout_q, wout_scale, b_out, num_heads: int,
-                                mask=None):
-    """Plain PyTorch K5, rounding where ``_q8_ln_block_kernel`` rounds: the
+                                mask=None, wqkv_qt=None, wout_qt=None):
+    """Plain PyTorch K5, rounding where ``_q8_ln_block_kernel`` rounds (it
+    takes the wrapper's arguments; the K-major copies are not used): the
     LN output is quantized in fp32; qkv = (acc·hs·s_qkv + b_qkv) in fp32,
     rounded to ``x.dtype``; q is scaled by 1/√dh in the working type; the
     probabilities round to it before p·v; each head's fp32 output is
@@ -129,8 +164,9 @@ def q8_ln_attention_block_plain(x, ln_scale, ln_bias, wqkv_q, wqkv_scale, b_qkv,
 
 
 def q8_ln_mlp_plain(x, ln_scale, ln_bias, wfc_q, wfc_scale, b_fc, wpr_q,
-                    wpr_scale, b_pr):
-    """Plain PyTorch K6, rounding where ``_q8_mlp_kernel`` rounds: the LN
+                    wpr_scale, b_pr, wfc_qt=None, wpr_qt=None):
+    """Plain PyTorch K6, rounding where ``_q8_mlp_kernel`` rounds (it takes
+    the wrapper's arguments; the K-major copies are not used): the LN
     output and the fp32 QuickGELU hidden are each quantized per row; biases,
     GELU and the residual are fp32; only the result rounds to ``x.dtype``."""
     dt = x.dtype
@@ -205,15 +241,20 @@ def _quantize(lib, x2d, stream, gamma=None, beta=None):
 
 
 def _q8_gemm(lib, a, w, row_scale, col_scale, bias, out, epilogue, stream,
-             group_k=None, resid=None):
+             group_k=None, resid=None, wt=None):
     """``out = epilogue(Σ_groups (A·W)_group · row_scale · col_scale)``: one
     int8 product whose int32 partial over each ``group_k`` columns of K (all
     of K by default; one head's 64 for the out-projection) is scaled into an
-    fp32 sum; ``out``'s dtype is the working type (fp32 for the hidden)."""
+    fp32 sum; ``out``'s dtype is the working type (fp32 for the hidden). W
+    comes in the JAX layout [K, N]; the kernel reads it K-major, as ``wt``
+    [N, K] (``quantize_visual``'s "qt"), or from a transposed copy made here
+    when ``wt`` is None."""
     m, k = a.shape
     n = w.shape[1]
+    if wt is None:
+        wt = w.t().contiguous()
     _build.check(
-        lib.cgt_q8_gemm(_ptr(a), _ptr(w), _ptr(row_scale), _ptr(col_scale),
+        lib.cgt_q8_gemm(_ptr(a), _ptr(wt), _ptr(row_scale), _ptr(col_scale),
                         _ptr(bias), _ptr(resid), _ptr(out), m, n, k,
                         group_k or k, _DTYPE_CODE[out.dtype], epilogue, stream),
         "q8_gemm",
@@ -235,16 +276,29 @@ def quantize_rows_kernel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale[:, None]
 
 
+def _k_major(weights):
+    """The given K-major copies ``{key: (tensor or None, [K, N] weight)}``
+    in ``_check``'s form: each must be shaped [N, K]."""
+    return {key: (wt, tuple(w.shape[::-1])) for key, (wt, w) in weights.items()
+            if wt is not None}
+
+
 def q8_ln_attention_block(x, ln_scale, ln_bias, wqkv_q, wqkv_scale, b_qkv,
                           wout_q, wout_scale, b_out, num_heads: int,
-                          mask: Optional[torch.Tensor] = None):
+                          mask: Optional[torch.Tensor] = None,
+                          wqkv_qt: Optional[torch.Tensor] = None,
+                          wout_qt: Optional[torch.Tensor] = None):
     """K5: ``x + MHA(LN(x))`` with int8 qkv and out projections, for x
     [B, N, D] (fp32 or bf16); wqkv_q int8 [D, 3D] with fp32 scales [3D],
     wout_q int8 [D, D] with scales [D] (``quantize_weight``), biases used in
-    fp32, mask an optional additive fp32 [N, N]. Returns x's dtype."""
+    fp32, mask an optional additive fp32 [N, N]; wqkv_qt and wout_qt the
+    weights' K-major copies [N, K] (``quantize_visual``'s "qt"), made per
+    call when not given. Returns x's dtype."""
     b, n, d = x.shape
     name = "q8_ln_attention_block"
-    _check(name, x, {"wqkv_q": (wqkv_q, (d, 3 * d)), "wout_q": (wout_q, (d, d))},
+    _check(name, x, {"wqkv_q": (wqkv_q, (d, 3 * d)), "wout_q": (wout_q, (d, d)),
+                     **_k_major({"wqkv_qt": (wqkv_qt, wqkv_q),
+                                 "wout_qt": (wout_qt, wout_q)})},
            {"ln_scale": (ln_scale, d), "ln_bias": (ln_bias, d),
             "wqkv_scale": (wqkv_scale, 3 * d), "b_qkv": (b_qkv, 3 * d),
             "wout_scale": (wout_scale, d), "b_out": (b_out, d)}, mask)
@@ -262,7 +316,7 @@ def q8_ln_attention_block(x, ln_scale, ln_bias, wqkv_q, wqkv_scale, b_qkv,
     hq, hs = _quantize(lib, x2d, stream, _f32(ln_scale), _f32(ln_bias))
     qkv = torch.empty(t, 3 * d, dtype=x.dtype, device=x.device)
     _q8_gemm(lib, hq, wqkv_q, hs, _f32(wqkv_scale), _f32(b_qkv), qkv, _EPI_QKV,
-             stream)
+             stream, wt=wqkv_qt)
     oq = torch.empty(t, d, dtype=torch.int8, device=x.device)
     os = torch.empty(t, num_heads, dtype=torch.float32, device=x.device)
     mask32 = None if mask is None else _f32(mask)
@@ -273,20 +327,24 @@ def q8_ln_attention_block(x, ln_scale, ln_bias, wqkv_q, wqkv_scale, b_qkv,
     )
     out = torch.empty_like(x)
     _q8_gemm(lib, oq, wout_q, os, _f32(wout_scale), _f32(b_out), out.view(t, d),
-             _EPI_RESID_ATTN, stream, group_k=HEAD_DIM, resid=x2d)
+             _EPI_RESID_ATTN, stream, group_k=HEAD_DIM, resid=x2d, wt=wout_qt)
     LAUNCHES[name] += 1
     return out
 
 
 def q8_ln_mlp(x, ln_scale, ln_bias, wfc_q, wfc_scale, b_fc, wpr_q, wpr_scale,
-              b_pr):
+              b_pr, wfc_qt: Optional[torch.Tensor] = None,
+              wpr_qt: Optional[torch.Tensor] = None):
     """K6: ``x + MLP(LN(x))`` with int8 c_fc and c_proj, for x [B, N, D]
     (fp32 or bf16); wfc_q int8 [D, H] with fp32 scales [H], wpr_q int8
-    [H, D] with scales [D], biases used in fp32. Returns x's dtype."""
+    [H, D] with scales [D], biases used in fp32; wfc_qt and wpr_qt the
+    weights' K-major copies, as K5's. Returns x's dtype."""
     b, n, d = x.shape
     hidden = wfc_q.shape[-1]
     name = "q8_ln_mlp"
-    _check(name, x, {"wfc_q": (wfc_q, (d, hidden)), "wpr_q": (wpr_q, (hidden, d))},
+    _check(name, x, {"wfc_q": (wfc_q, (d, hidden)), "wpr_q": (wpr_q, (hidden, d)),
+                     **_k_major({"wfc_qt": (wfc_qt, wfc_q),
+                                 "wpr_qt": (wpr_qt, wpr_q)})},
            {"ln_scale": (ln_scale, d), "ln_bias": (ln_bias, d),
             "wfc_scale": (wfc_scale, hidden), "b_fc": (b_fc, hidden),
             "wpr_scale": (wpr_scale, d), "b_pr": (b_pr, d)})
@@ -302,10 +360,10 @@ def q8_ln_mlp(x, ln_scale, ln_bias, wfc_q, wfc_scale, b_fc, wpr_q, wpr_scale,
     hq, hs = _quantize(lib, x2d, stream, _f32(ln_scale), _f32(ln_bias))
     hid = torch.empty(t, hidden, dtype=torch.float32, device=x.device)
     _q8_gemm(lib, hq, wfc_q, hs, _f32(wfc_scale), _f32(b_fc), hid, _EPI_GELU,
-             stream)
+             stream, wt=wfc_qt)
     gq, gs = _quantize(lib, hid, stream)
     out = torch.empty_like(x)
     _q8_gemm(lib, gq, wpr_q, gs, _f32(wpr_scale), _f32(b_pr), out.view(t, d),
-             _EPI_RESID_MLP, stream, resid=x2d)
+             _EPI_RESID_MLP, stream, resid=x2d, wt=wpr_qt)
     LAUNCHES[name] += 1
     return out

@@ -634,6 +634,100 @@ def test_int8_wrapper_refuses_a_tracked_input_on_the_card(device):
         _k6(p)
 
 
+# The int8 GEMM core of csrc/int8_block.cu called directly through the
+# wrapper's _q8_gemm (W in the JAX layout [K, N], copied K-major there). Its
+# int32 sums are exact and its fp32 epilogue runs q8_gemm_plain's operations
+# in q8_gemm_plain's order, so every epilogue but QuickGELU (expf against
+# torch.sigmoid: the fp32 tolerance) is held bit for bit. (M, N, K,
+# epilogue, group_k): M one row, the ViT-B/16 tokens of 1 and 3 images and
+# of the serving batch of 512; N and K past and inside the 128-wide tiles;
+# K = 800 ends on half a 64-byte k-tile; a row and a column of ±127 make
+# int32 sums past 2^24 at K = 3,072.
+Q8_GEMM_CASES = [
+    (1, 128, 128, "qkv", None),
+    (197, 2304, 768, "qkv", None),
+    (591, 800, 800, "qkv", None),
+    (100864, 2304, 768, "qkv", None),
+    (1, 768, 768, "resid_attn", 64),
+    (197, 128, 768, "resid_attn", 64),
+    (591, 768, 768, "resid_attn", 64),
+    (100864, 768, 768, "resid_attn", 64),
+    (591, 800, 800, "resid_attn", 160),
+    (1, 128, 3072, "resid_mlp", None),
+    (197, 768, 3072, "resid_mlp", None),
+    (591, 800, 800, "resid_mlp", None),
+    (100864, 768, 3072, "resid_mlp", None),
+    (197, 3072, 768, "gelu", None),
+    (591, 800, 128, "gelu", None),
+    (100864, 3072, 768, "gelu", None),
+]
+
+
+def _q8_gemm_operands(m, n, k, groups, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=device).to(torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=device).to(torch.int8)
+    a[0] = 127
+    a[-1, : k // 2] = -127
+    w[:, 0] = 127
+    return {
+        "a": a, "w": w,
+        "row_scale": torch.rand(m, groups, generator=g, device=device) * 1e-2 + 1e-4,
+        "col_scale": torch.rand(n, generator=g, device=device) * 1e-2 + 1e-4,
+        "bias": 0.1 * torch.randn(n, generator=g, device=device),
+        "resid": torch.randn(m, n, generator=g, device=device).to(dtype),
+    }
+
+
+def _q8_gemm_kernel(p, epilogue, dtype, group_k=None):
+    from clip_gp_tpu_torch.ops import _build
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    a, w = p["a"], p["w"]
+    out_dtype = torch.float32 if epilogue == "gelu" else dtype
+    out = torch.empty(a.shape[0], w.shape[1], dtype=out_dtype, device=a.device)
+    ib._q8_gemm(_build.library(), a, w, p["row_scale"], p["col_scale"], p["bias"],
+                out, fa.GEMM_EPILOGUES.index(epilogue),
+                torch.cuda.current_stream(a.device).cuda_stream, group_k=group_k,
+                resid=p["resid"] if epilogue.startswith("resid") else None)
+    return out
+
+
+# the QuickGELU hidden is fp32 in either working type: fp32 only
+@pytest.mark.parametrize("case,dtype", [
+    pytest.param(case, dtype, id=f"{case}-{name}")
+    for case in Q8_GEMM_CASES
+    for dtype, name in zip(DTYPES, ("fp32", "bf16"))
+    if case[3] != "gelu" or dtype == torch.float32
+])
+def test_int8_gemm_matches_plain_bit_for_bit(device, case, dtype):
+    from clip_gp_tpu_torch.ops import int8_block as ib
+
+    m, n, k, epilogue, group_k = case
+    p = _q8_gemm_operands(m, n, k, k // (group_k or k), dtype, device, seed=m + n + k)
+    got = _q8_gemm_kernel(p, epilogue, dtype, group_k)
+    ref = ib.q8_gemm_plain(p["a"], p["w"], p["row_scale"], p["col_scale"], p["bias"],
+                           epilogue, got.dtype, group_k=group_k, resid=p["resid"])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    if epilogue == "gelu":
+        _assert_close(got, ref, torch.float32)
+    else:
+        assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+
+
+def test_int8_gemm_repeats_bit_for_bit(device):
+    p = _q8_gemm_operands(6304, 3072, 768, 1, torch.bfloat16, device)
+    assert torch.equal(_q8_gemm_kernel(p, "gelu", torch.bfloat16),
+                       _q8_gemm_kernel(p, "gelu", torch.bfloat16))
+
+
+def test_int8_gemm_refuses_a_shape_outside_its_layout(device):
+    p = _q8_gemm_operands(8, 128, 48, 1, torch.float32, device)
+    with pytest.raises(RuntimeError, match="q8_gemm"):
+        _q8_gemm_kernel(p, "qkv", torch.float32)
+
+
 def test_int8_tower_through_the_kernels_matches_the_plain_tower(device):
     from unittest import mock
 
