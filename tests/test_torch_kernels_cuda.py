@@ -641,8 +641,10 @@ def test_int8_wrapper_refuses_a_tracked_input_on_the_card(device):
 # torch.sigmoid: the fp32 tolerance) is held bit for bit. (M, N, K,
 # epilogue, group_k): M one row, the ViT-B/16 tokens of 1 and 3 images and
 # of the serving batch of 512; N and K past and inside the 128-wide tiles;
-# K = 800 ends on half a 64-byte k-tile; a row and a column of ±127 make
-# int32 sums past 2^24 at K = 3,072.
+# K = 800 and 320 end inside a 128-byte k-tile (320 on a phantom 64-byte
+# group of zeros); group_k 160 and 128 take the kernel's run-time grouping,
+# 64 with the out-projection's epilogue its compile-time one; a row and a
+# column of ±127 make int32 sums past 2^24 at K = 3,072.
 Q8_GEMM_CASES = [
     (1, 128, 128, "qkv", None),
     (197, 2304, 768, "qkv", None),
@@ -653,6 +655,8 @@ Q8_GEMM_CASES = [
     (591, 768, 768, "resid_attn", 64),
     (100864, 768, 768, "resid_attn", 64),
     (591, 800, 800, "resid_attn", 160),
+    (591, 256, 320, "resid_attn", 64),
+    (197, 800, 768, "qkv", 128),
     (1, 128, 3072, "resid_mlp", None),
     (197, 768, 3072, "resid_mlp", None),
     (591, 800, 800, "resid_mlp", None),
