@@ -36,12 +36,13 @@
 // are issued on no divergent path (ptxas serializes every wgmma of a kernel
 // that has one). What is left over the bound:
 // - K5's out-projection must scale each 64-byte head's int32 sums into the
-//   fp32 ones: five fp32-pipe instructions per element per head (the exact
+//   fp32 ones: five instructions per element per head (the exact
 //   int-to-float by two adds, both multiplies, the add), twelve times a
-//   tile, behind a wgmma.wait_group 0 each. Its 128x64 tiles let two blocks
-//   share an SM, so one block's products run while the other scales. Two
-//   int32 sets in one warpgroup, to scale one head while the next one's
-//   products run, made ptxas serialize the products and spill (PERF.md).
+//   tile, behind a wgmma.wait_group 0 each. At ViT-B/16 batch 512 that
+//   work alone adds about 0.16 ms to the product's 0.30 (measured without
+//   it; the waits cost nothing measurable). Two int32 sets in one
+//   warpgroup, to scale one head while the next one's products run, made
+//   ptxas serialize the products and spill (PERF.md).
 // - qkv, c_fc and c_proj run 128x128 tiles, two blocks an SM, so one
 //   block's epilogue overlaps the other's products; each block is one tile
 //   (no persistent grid), and c_fc writes its fp32 hidden from registers.
@@ -113,14 +114,16 @@ constexpr int MAX_SMEM = 232448;               // an sm_90 block's most
 
 // The kernel's three shapes, by GK, the group's width in k32 steps:
 // - GK = 0, one group over all of K (qkv, c_fc, c_proj): 128x128 tiles, a
-//   consumer thread holds 64 int32 sums (~96 registers), two blocks an SM
+//   consumer thread holds 64 int32 sums (ptxas gives 96 registers and
+//   spills a few dozen bytes), two blocks an SM
 //   (3 stages each, 97 KB), so one block's epilogue runs beside the other's
 //   products;
 // - GK = 2, 64-byte groups (K5's out-projection, a head each): 128x64
 //   tiles, 32 int32 and 32 fp32 sums a thread, two blocks an SM (4 stages of
 //   24 KB each), so one block's products run while the other scales a group;
 // - GK = -1, any other group_k (no caller sends one): 128x128 tiles, the
-//   group ends found at run time, one block an SM.
+//   group ends found at run time, so its products sit on a divergent path
+//   and ptxas serializes them; one block an SM.
 template <int GK>
 struct Shape {
   static constexpr int bn = GK == 2 ? 64 : 128;
@@ -207,9 +210,10 @@ __device__ __forceinline__ void scale_sums(float (&facc)[NA], const int (&sums)[
 // Grouped, each group's int32 sum is complete only after wait_group 0; it
 // is then scaled into the fp32 sums, and the group's first product starts
 // the next one from zero (scale-d 0). A phantom group past K (K % 128 ==
-// 64) sums zeros and meets a zero row scale. The block's column scales,
-// bias and row scales [BM, groups + 1] are staged in shared memory first;
-// each thread finishes its outputs from registers.
+// 64) sums zeros and meets a zero row scale. The consumers stage the
+// block's column scales, bias and row scales [BM, groups + 1] in shared
+// memory while the first tiles land; each thread finishes its outputs from
+// registers.
 template <int EPI, int DT, int GK>
 __global__ void __launch_bounds__(THREADS, Shape<GK>::blocks)
     q8_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
@@ -240,15 +244,6 @@ __global__ void __launch_bounds__(THREADS, Shape<GK>::blocks)
   const int groups = K / group_k, rs_ld = groups + 1;
   const int ktiles = (K + BK - 1) / BK;
 
-  for (int i = tid; i < BN; i += THREADS) {
-    const int n = n0 + i;
-    cs_s[i] = n < N ? col_scale[n] : 0.f;
-    b_s[i] = n < N ? bias[n] : 0.f;
-  }
-  for (int i = tid; i < BM * rs_ld; i += THREADS) {
-    const int m = m0 + i / rs_ld, grp = i % rs_ld;
-    rs_s[i] = m < M && grp < groups ? row_scale[(size_t)m * groups + grp] : 0.f;
-  }
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 1);               // the producer's arrival + bytes
@@ -270,6 +265,19 @@ __global__ void __launch_bounds__(THREADS, Shape<GK>::blocks)
     }
     return;
   }
+
+  // the consumers stage the scales and bias while the first tiles land
+  constexpr int CT = 128 * CONSUMERS;
+  for (int i = tid; i < BN; i += CT) {
+    const int n = n0 + i;
+    cs_s[i] = n < N ? col_scale[n] : 0.f;
+    b_s[i] = n < N ? bias[n] : 0.f;
+  }
+  for (int i = tid; i < BM * rs_ld; i += CT) {
+    const int m = m0 + i / rs_ld, grp = i % rs_ld;
+    rs_s[i] = m < M && grp < groups ? row_scale[(size_t)m * groups + grp] : 0.f;
+  }
+  consumers_sync<CT>();
 
   const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, t4 = lane & 3;
   const int row0 = wg * 64 + w4 * 16 + g;  // this thread's rows: row0, row0 + 8

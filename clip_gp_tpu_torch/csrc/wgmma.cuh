@@ -49,6 +49,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// a barrier of the block's first THREADS threads only (named barrier 1;
+// barrier 0 is __syncthreads)
+template <int THREADS>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+
 // ------------------------------------------------------------------ TMA ----
 // the box at (x, y) (x the contiguous dimension) of the tensor ``map``
 // describes into shared memory at ``dst``, completing on ``bar``

@@ -1,11 +1,14 @@
 """The plain version of the int8 GEMM core (``ops/int8_block.py``
-``q8_gemm_plain``), on the CPU.
+``q8_gemm_plain``) and the weights' K-major copies the core reads, on the
+CPU.
 
 The card tests hold ``csrc/int8_block.cu``'s product bit for bit against
 ``q8_gemm_plain``; these tests show that ``q8_gemm_plain`` is, bit for bit,
 each of the four products that the plain K5 and K6 compute (which
 ``tests/test_torch_int8_block.py`` holds against the Pallas kernels), so the
-card's bit-for-bit checks reach the JAX package's arithmetic.
+card's bit-for-bit checks reach the JAX package's arithmetic. The core reads
+W as [N, K]: ``quantize_visual`` keeps that copy ("qt") beside each weight,
+and the wrappers check the shape of a copy they are given.
 """
 
 import numpy as np
