@@ -51,7 +51,8 @@ exits non-zero before printing any result. Phases, each raising on failure:
    (GEMM_BWD_TILE_CELLS); the ``[int8 gemm]`` cells: each int8 product of
    K5 and K6 (Q8_GEMM_PRODUCTS) called directly at ViT-B/16 B=32 and
    B=512 in bf16, held bit for bit to its plain version at B=32 and timed
-   beside its own bound and ``torch._int_mm``; and a ``torch.profiler``
+   per call and back to back beside its own bound and ``torch._int_mm``;
+   and a ``torch.profiler``
    trace of three calls each of K1, K2 and K8 at ViT-B/16 B=512 in bf16
    and fp32, of K5 and K6 in bf16 and of K3 and K4 in fp32 (dx only and all gradients, text B=256 N=24),
    printing the device time per call of each CUDA kernel by name, and for
@@ -342,6 +343,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_ms_back_to_back(fn, launches: int = 20, warmup: int = 3) -> float:
+    """CUDA-event time of ``launches`` calls made back to back, over their
+    count, in ms: the host's time to make a call overlaps the card's work on
+    the one before, where ``time_ms`` adds it to each call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def compare(out, ref, atol: float, rtol: float):
     """(max abs error, max error relative to atol + |ref|, within tolerance)."""
     max_abs, max_rel, _, ok = compare_margin(out, ref, atol, rtol)
@@ -368,7 +388,7 @@ def _log_instantiations(source, ptxas):
     registers and spill stores and loads."""
     for entry in ptxas.split("Compiling entry function '")[1:]:
         name = entry.split("'", 1)[0]
-        args = ", ".join(re.findall(r"Li(\d+)E", name))
+        args = ", ".join(a.replace("n", "-") for a in re.findall(r"Li(n?\d+)E", name))
         regs = re.search(r"Used (\d+) registers", entry)
         spills = re.findall(r"(\d+) bytes spill (stores|loads)", entry)
         spill = ", ".join(f"{n} bytes spill {kind}" for n, kind in spills)
@@ -1486,11 +1506,12 @@ def phase_q8_gemm(device, peaks, n_tokens=197, dtype_name="bf16"):
     at ViT-B/16 B=32 and B=512 in the serving dtype, called through the
     wrapper's ``_q8_gemm`` with W's K-major copy made beforehand, as the int8
     tower makes it (the copy, which a call without it would make, is timed
-    apart), timed beside
-    its own bound and ``torch._int_mm`` on the same operands (int32 out, no
-    scales or epilogue: a yardstick only, which the port never calls). At
-    B=32 each is first held to ``q8_gemm_plain``: bit for bit, QuickGELU to
-    the fp32 tolerance."""
+    apart). Each is timed per call as every cell is (``time_ms``) and back
+    to back (``time_ms_back_to_back``), beside its own bound and
+    ``torch._int_mm`` on the same operands (int32 out, no scales or
+    epilogue: a yardstick only, which the port never calls). At B=32 each
+    is first held to ``q8_gemm_plain``: bit for bit, QuickGELU to the fp32
+    tolerance."""
     import torch
 
     from clip_gp_tpu_torch.ops import _build
@@ -1529,6 +1550,7 @@ def phase_q8_gemm(device, peaks, n_tokens=197, dtype_name="bf16"):
                                            "disagrees with q8_gemm_plain")
                     del ref
                 ms = time_ms(run)
+                b2b_ms = time_ms_back_to_back(run)
                 w_cm = p["w"].t().contiguous().t()
                 int_mm_ms = time_ms(lambda: torch._int_mm(p["a"], w_cm))
                 copy_ms = time_ms(lambda: p["w"].t().contiguous())
@@ -1544,7 +1566,8 @@ def phase_q8_gemm(device, peaks, n_tokens=197, dtype_name="bf16"):
                     f"kernel_ms {ms:.4f} ({ops / ms / 1e9:.1f} TOP/s; W's K-major "
                     f"copy, not in it, {copy_ms:.4f}) bound_ms {bound:.4f} "
                     f"({'operations' if t_ops >= t_bytes else 'bytes'}, "
-                    f"{100 * bound / ms:.1f}% of the kernel's time) "
+                    f"{100 * bound / ms:.1f}% of the kernel's time; back to back "
+                    f"{b2b_ms:.4f} ms, {100 * bound / b2b_ms:.1f}%) "
                     f"torch._int_mm {int_mm_ms:.4f} ms (kernel/int_mm "
                     f"{ms / int_mm_ms:.2f}x)")
                 del p, out, resid, w_cm, wt
