@@ -89,10 +89,28 @@ exits non-zero before printing any result. Phases, each raising on failure:
    working type, K8, ``+ x``, and (c) LN, ``F.linear`` qkv, K7,
    ``F.linear`` out-projection, ``+ x``; (b) and (c) each held against the
    same composition of plain versions, and all three timed;
-9. output: one ``{"kernels": [...]}`` line, then as the last line
+9. RN50, the paper's backbone (BASELINE configs #1-#3): a random RN50
+   state dict in the OpenAI layout (vision width 64, layers (3, 4, 6, 3),
+   224 px, embed 1024, text 512/8/12; random BatchNorm statistics) is saved
+   to a temporary ``.pt`` and loaded through ``load_clip_resolved`` with
+   ``MODEL.INIT_WEIGHTS``; its ``encode_image`` (fp32, 8 images) on the card
+   against the same model on the CPU (``TOWER_TOL`` of the largest feature)
+   with no kernel launched (path ``rn50_encode``: the ResNet tower is
+   cuDNN convolutions and a plain attention pool), then its fp32 encode
+   rate at B=32 and B=512 beside the card's name and power limit; then,
+   each loaded from that ``.pt``, the Adapter with the GP (``--use-gp``,
+   BASELINE #1/#2) and the three feature-cached heads of #3 — CLIP-Adapter
+   with the GP pre-stage, TaskRes and Tip-Adapter-F — for 3 epochs each
+   (paths ``rn50_adapter_gp``, ``rn50_clip_adapter_gp``, ``rn50_taskres``,
+   ``rn50_tip_adapter_f``), checking metrics.json and that K1 and K2
+   launched exactly once in each of the text tower's 12 blocks per template
+   encode and never from an RN image encode; and one CLIP-Adapter epoch on
+   ViT-B/16 (path ``vit_clip_adapter``), whose every step re-encodes its
+   images through K1/K2 in all 12 blocks;
+10. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-8 sets the launch counts to 0 just before each run it
+Each of phases 4-9 sets the launch counts to 0 just before each run it
 drives and reads them just after; a kernel's ``launches`` in the JSON line is
 the sum over those runs, and ``launches_by_path`` gives each.
 """
@@ -1843,7 +1861,9 @@ def _train(c, dm, on_build=None):
             metrics = json.load(f)["metrics"]
     log(f"[{c.trainer_name}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for key in ("top1_acc", "macro_f1", "ece", "aece"):
+    # Tip-Adapter's metrics.json has no macro_f1, as in the JAX package
+    for key in ("top1_acc", "ece", "aece") + (("macro_f1",) if "macro_f1" in metrics
+                                              else ()):
         if not np.isfinite(metrics[key]):
             raise RuntimeError(f"{c.trainer_name} metrics.json: {key} = {metrics[key]}")
     return launches, metrics, seconds, trainer
@@ -1858,8 +1878,8 @@ def _check_launches(what, launches, need):
 
 
 def _metrics_line(metrics):
-    return (f"top1_acc {metrics['top1_acc']:.2f} macro_f1 {metrics['macro_f1']:.2f} "
-            f"ece {metrics['ece']:.2f} aece {metrics['aece']:.2f}")
+    return " ".join(f"{key} {metrics[key]:.2f}" for key in
+                    ("top1_acc", "macro_f1", "ece", "aece") if key in metrics)
 
 
 def phase_trainer(backbone="ViT-B/16"):
@@ -2229,6 +2249,203 @@ def phase_blocks(device, n=197, d=768, heads=12, batch=32, lineage_batch=512):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+# RN50 fp32 encode rates at 32 images and at the trainers' device batch
+# (methods/common.py EXTRACT_DEVICE_BATCH)
+RN50_RATE_BATCHES = (32, 512)
+
+
+def rn50_state_dict(seed=0):
+    """(arch, a random RN50 state dict in the OpenAI layout, ref:
+    clip/model.py): vision width 64, layers (3, 4, 6, 3), 224 px, embed 1024,
+    the text tower 512 wide with 8 heads and 12 layers. Weights are
+    N(0, fan_in^-1/2); every BatchNorm has a random weight, bias, running
+    mean and running variance, so that the folding is exercised."""
+    import torch
+
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+
+    arch = ARCHITECTURES["RN50"]
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def normal(key, *shape, std=None):
+        fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+        sd[key] = torch.randn(shape, generator=g) * (std or fan_in**-0.5)
+
+    def affine(key, n, mean=1.0):  # a LayerNorm's or BatchNorm's weight and bias
+        sd[f"{key}.weight"] = mean + 0.1 * torch.randn(n, generator=g)
+        sd[f"{key}.bias"] = 0.1 * torch.randn(n, generator=g)
+
+    def conv_bn(conv, bn, cout, cin, k):
+        normal(f"{conv}.weight", cout, cin, k, k)
+        affine(bn, cout)
+        sd[f"{bn}.running_mean"] = 0.1 * torch.randn(cout, generator=g)
+        sd[f"{bn}.running_var"] = 0.5 + torch.rand(cout, generator=g)
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+
+    def linear(key, cout, cin):
+        normal(f"{key}.weight", cout, cin)
+        normal(f"{key}.bias", cout, std=0.02)
+
+    w = arch.vision_width
+    for i, (cin, cout) in enumerate(((3, w // 2), (w // 2, w // 2), (w // 2, w)), 1):
+        conv_bn(f"visual.conv{i}", f"visual.bn{i}", cout, cin, 3)
+    cin = w
+    for li, n_blocks in enumerate(arch.vision_layers):
+        planes = w * 2**li
+        for bi in range(n_blocks):
+            p = f"visual.layer{li + 1}.{bi}"
+            conv_bn(f"{p}.conv1", f"{p}.bn1", planes, cin, 1)
+            conv_bn(f"{p}.conv2", f"{p}.bn2", planes, planes, 3)
+            conv_bn(f"{p}.conv3", f"{p}.bn3", planes * 4, planes, 1)
+            if (li > 0 and bi == 0) or cin != planes * 4:
+                conv_bn(f"{p}.downsample.0", f"{p}.downsample.1", planes * 4, cin, 1)
+            cin = planes * 4
+    embed = w * 32
+    normal("visual.attnpool.positional_embedding", (arch.image_resolution // 32) ** 2 + 1,
+           embed)
+    for name, cout in (("q_proj", embed), ("k_proj", embed), ("v_proj", embed),
+                       ("c_proj", arch.embed_dim)):
+        linear(f"visual.attnpool.{name}", cout, embed)
+    tw = arch.transformer_width
+    normal("token_embedding.weight", arch.vocab_size, tw, std=0.02)
+    normal("positional_embedding", arch.context_length, tw, std=0.01)
+    for i in range(arch.transformer_layers):
+        p = f"transformer.resblocks.{i}"
+        affine(f"{p}.ln_1", tw)
+        normal(f"{p}.attn.in_proj_weight", 3 * tw, tw)
+        normal(f"{p}.attn.in_proj_bias", 3 * tw, std=0.02)
+        linear(f"{p}.attn.out_proj", tw, tw)
+        affine(f"{p}.ln_2", tw)
+        linear(f"{p}.mlp.c_fc", 4 * tw, tw)
+        linear(f"{p}.mlp.c_proj", tw, 4 * tw)
+    affine("ln_final", tw)
+    normal("text_projection", tw, arch.embed_dim)
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    sd["input_resolution"] = torch.tensor(arch.image_resolution)
+    sd["context_length"] = torch.tensor(arch.context_length)
+    sd["vocab_size"] = torch.tensor(arch.vocab_size)
+    return arch, sd
+
+
+def phase_rn50_tower(device, smi, pt, n_images=8):
+    """The RN50 tower from an OpenAI ``.pt`` through ``load_clip_resolved``
+    (``MODEL.INIT_WEIGHTS``), on the card against the same model on the CPU,
+    then its fp32 encode rates; returns the launches of its image encodes
+    (none: the ResNet tower has no kernel of its own)."""
+    import copy
+
+    import torch
+
+    from clip_gp_tpu_torch.models.clip_loader import load_clip_resolved
+
+    c, arch = _config("RN50", "Adapter", shots=1, epochs=1)
+    c.model.init_weights = pt
+    start = time.perf_counter()
+    t_arch, model, _ = load_clip_resolved(c)
+    load_s = time.perf_counter() - start
+    if (model.text_projection.device.type != device.type
+            or t_arch.vision_layers != arch.vision_layers):
+        raise RuntimeError(f"RN50 .pt: loaded {t_arch} on {model.text_projection.device}")
+    g = torch.Generator().manual_seed(4)
+    res = arch.image_resolution
+    images = torch.randn(n_images, res, res, 3, generator=g)
+    _reset_counts()
+    with torch.no_grad():
+        got = model.encode_image(images.to(device))
+        torch.cuda.synchronize()
+        launches = _counts()
+        ref = copy.deepcopy(model).to("cpu").encode_image(images)
+    got = got.cpu()
+    if tuple(got.shape) != (n_images, arch.embed_dim) or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"RN50 encode_image: bad output {tuple(got.shape)}")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    log(f"[rn50] .pt ({os.path.getsize(pt) / 2**20:.1f} MiB, OpenAI layout, BatchNorm "
+        f"folded) loaded in {load_s:.2f} s; encode_image {tuple(got.shape)} fp32: card "
+        f"vs CPU max_abs_err {err:.3e} (max |feature| {scale:.3f}; tol "
+        f"{TOWER_TOL:.1e} x max |feature|); launches {launches}")
+    if err > TOWER_TOL * scale:
+        raise RuntimeError("RN50 encode_image: the card disagrees with the CPU")
+    if any(launches.values()):
+        raise RuntimeError(f"RN50 encode_image launched kernels: {launches}")
+    for b in RN50_RATE_BATCHES:
+        x = torch.randn(b, res, res, 3, generator=g).to(device)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms = time_ms(lambda: model.encode_image(x), iters=5, warmup=2)
+        log(f"[rn50] RN50 encode_image fp32 B={b}: {ms:.3f} ms, {b / (ms / 1e3):.1f} "
+            f"images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        del x
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _rn50_run(pt, name, trainer_name, epochs=3, images_per_class=20, **adapter):
+    """One trainer on RN50 loaded from ``pt`` over 4 synthetic classes, 4
+    shots, 16 templates; every class x template prompt goes through the text
+    tower once (K1 then K2 in each of its 12 blocks), and no RN image encode
+    launches either."""
+    c, arch = _config("RN50", trainer_name, shots=4, epochs=epochs)
+    c.model.init_weights = pt
+    c.adapter.num_templates = 16
+    for key, value in adapter.items():
+        setattr(c.adapter, key, value)
+    dm = InMemoryDataManager(c, images_per_class=images_per_class)
+    launches, metrics, seconds, _ = _train(c, dm)
+    text = arch.transformer_layers * math.ceil(4 * c.adapter.num_templates / 256)
+    log(f"[rn50] {name} RN50: {len(dm.dataset.train_x)} train / {len(dm.dataset.test)} "
+        f"test images, {epochs} epochs in {seconds:.2f} s; {_metrics_line(metrics)}; "
+        f"launches {launches}")
+    for kernel in ("fused_ln_attention_block", "fused_ln_mlp"):
+        if launches[kernel] != text:
+            raise RuntimeError(
+                f"{name} RN50: {kernel} launched {launches[kernel]} times; the text "
+                f"tower's {text} blocks launch it once each and no RN image encode "
+                "launches it")
+    return launches
+
+
+def phase_rn50_trainers(pt):
+    """BASELINE #1/#2 (the Adapter with the GP) and #3's heads on RN50."""
+    return {
+        "rn50_adapter_gp": _rn50_run(pt, "Adapter+GP", "Adapter", use_gp=True),
+        "rn50_clip_adapter_gp": _rn50_run(pt, "CLIP-Adapter+GP", "CLIP-Adapter",
+                                          use_gp=True),
+        "rn50_taskres": _rn50_run(pt, "TaskRes", "TaskRes"),
+        "rn50_tip_adapter_f": _rn50_run(pt, "Tip-Adapter-F", "Tip-Adapter",
+                                        tip_adapter_trainable=True,
+                                        tip_adapter_epochs=3),
+    }
+
+
+def phase_vit_clip_adapter(backbone="ViT-B/16"):
+    """One CLIP-Adapter epoch on ViT-B/16: every step re-encodes its images
+    through the frozen tower, K1 then K2 in each of the 12 blocks."""
+    from clip_gp_tpu_torch.methods import common
+
+    c, arch = _config(backbone, "CLIP-Adapter", shots=16, epochs=1)
+    c.adapter.num_templates = 16
+    dm = InMemoryDataManager(c, images_per_class=24)
+    launches, metrics, seconds, _ = _train(c, dm)
+    steps = len(dm.train_loader_x)
+    image_encodes = math.ceil(len(dm.dataset.test) / common.EXTRACT_DEVICE_BATCH) + steps
+    text_encodes = math.ceil(4 * c.adapter.num_templates / 256)
+    log(f"[vit clip-adapter] CLIP-Adapter {backbone}: {len(dm.dataset.train_x)} train / "
+        f"{len(dm.dataset.test)} test images, {steps} steps in {seconds:.2f} s; "
+        f"{_metrics_line(metrics)}")
+    need = (arch.vision_layers * image_encodes
+            + arch.transformer_layers * text_encodes)
+    _check_launches("vit clip-adapter", launches, {"fused_ln_attention_block": need,
+                                                   "fused_ln_mlp": need})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2256,6 +2473,12 @@ def main() -> int:
     by_path = {"adapter_gp": phase_trainer(), "coop": phase_coop(),
                "cocoop": phase_cocoop(), **phase_serving(device),
                "blocks": phase_blocks(device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        pt = os.path.join(tmp, "RN50.pt")
+        torch.save(rn50_state_dict()[1], pt)
+        by_path["rn50_encode"] = phase_rn50_tower(device, smi, pt)
+        by_path.update(phase_rn50_trainers(pt))
+    by_path["vit_clip_adapter"] = phase_vit_clip_adapter()
     for cell in cells:
         counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())

@@ -20,8 +20,11 @@ Checkpoints reload (``load_trainable_state``) in every mode; a reload on a
 subset of the trained classes selects their rows of the per-class state and
 of the GP buffers saved beside the checkpoints (``remap_trainable_state``).
 
-Not ported yet: the finetune-on-test sanity loop, the prefit-on-full-set
-template scoring and reference-checkpoint adoption.
+With ``PREFIT_ON_FULL_SET`` the template weights are scored on the full
+train split (``common.prefit_full_set_features``).
+
+Not ported yet: the finetune-on-test sanity loop and reference-checkpoint
+adoption.
 """
 
 from __future__ import annotations
@@ -45,11 +48,9 @@ from clip_gp_tpu_torch.runtime.trainer_base import BaseTrainer
 @TRAINER_REGISTRY.register("Adapter")
 class Trainer(BaseTrainer):
     def __init__(self, config, dataset_manager, device=None):
-        for flag in ("finetune_on_test", "prefit_on_full_set"):
-            if getattr(config.adapter, flag, False):
-                raise NotImplementedError(
-                    f"TRAINER.ADAPTER.{flag.upper()} is not ported yet"
-                )
+        if getattr(config.adapter, "finetune_on_test", False):
+            raise NotImplementedError(
+                "TRAINER.ADAPTER.FINETUNE_ON_TEST is not ported yet")
         if getattr(config.dataset, "full_finetune", False):
             config.dataset.num_shots = 0
         super().__init__(config, dataset_manager, device)
@@ -276,12 +277,16 @@ class Trainer(BaseTrainer):
 
         self.labels_train, _, self.features_train = self.extract_features("train")
 
+        # score template weights on the full train split when configured
+        # (ref: trainers/adapter.py:71-100)
+        prefit = common.prefit_full_set_features(self.config, self)
+        tw_feats, tw_labels = prefit or (self.features_train, self.labels_train)
         dev = self.device
         template_weights = common.get_template_weights(
             self.config,
             self.text_embeddings,
-            torch.from_numpy(self.features_train).to(dev),
-            torch.from_numpy(self.labels_train).to(dev),
+            torch.from_numpy(tw_feats).to(dev),
+            torch.from_numpy(tw_labels).to(dev),
             self.logit_scale,
         )
         full_template_weights = template_weights

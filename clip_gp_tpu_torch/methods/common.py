@@ -67,6 +67,49 @@ def _template_scores(features, labels, text_embeddings, scale, num_classes):
     return sums / counts
 
 
+def prefit_full_set_features(config, trainer):
+    """(features [N,D] numpy, labels [N]) of the full train split, for
+    template-weight scoring with ``TRAINER.ADAPTER.PREFIT_ON_FULL_SET``, or
+    None when the flag is unset (JAX ``methods/common.py:79-121``).
+
+    The reference folds this branch into ``_get_template_weights``
+    (ref: trainers/adapter.py:71-100), so it applies to every warm start: the
+    Adapter's own and the GP pre-stages of CLIP-Adapter, TaskRes and
+    Tip-Adapter. The split is built with ``num_shots = 0`` and encoded under
+    the train transform, in order.
+
+    Deliberately narrower than the JAX package, which falls back to the
+    few-shot features on any exception: here only building the full split's
+    dataset and loader may fail that way (a ``[WARN]``, then None). The
+    encode is outside the catch, so an error of the image tower or a kernel
+    (on a GPU) propagates instead of hiding behind the fallback."""
+    if not bool(getattr(config.adapter, "prefit_on_full_set", False)):
+        return None
+    import copy
+
+    from clip_gp_tpu_torch.core.registry import build_dataset
+    from clip_gp_tpu_torch.data.pipeline import BatchLoader
+
+    try:
+        cfg_full = copy.deepcopy(config)
+        cfg_full.dataset.num_shots = 0
+        loader = BatchLoader(
+            build_dataset(cfg_full).train_x,
+            trainer.dm.tfm_train,
+            config.dataloader.batch_size_train,
+            shuffle=False,
+            drop_last=False,
+            num_workers=config.dataloader.num_workers,
+        )
+    except Exception as e:  # the JAX package's fallback contract
+        print(f"[WARN] prefit_on_full_set failed ({e}); "
+              "falling back to few-shot features.")
+        return None
+    labels, feats = trainer.encode_images_batched(loader)
+    print(f"[INFO] Prefit on full set: {len(feats)} samples used.")
+    return feats, labels
+
+
 def get_template_weights(
     config,
     text_embeddings: torch.Tensor,

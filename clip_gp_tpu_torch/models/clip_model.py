@@ -1,10 +1,12 @@
 """CLIP encoders as PyTorch modules (ref: clip/model.py).
 
-The ViT image tower and the causal text tower, held against the JAX package's
-``clip_gp_tpu/models/clip_model.py``: the same architectures, parameter names
-and layouts (right-multiply ``w_qkv [D, 3D]`` packing, NHWC images at the
-public functions), and the same numerics (LayerNorm and softmax in fp32
-whatever the compute dtype). Every residual block runs K1 then K2
+The ModifiedResNet and ViT image towers and the causal text tower, held
+against the JAX package's ``clip_gp_tpu/models/clip_model.py``: the same
+architectures, parameter names and layouts (right-multiply ``w_qkv [D, 3D]``
+packing, frozen BatchNorm folded into per-channel ``scale``/``bias``, NHWC
+images at the public functions), and the same numerics (LayerNorm and
+softmax in fp32 whatever the compute dtype). Every transformer residual block
+runs K1 then K2
 (``ops/flash_attention.py``): hand-written CUDA kernels on a GPU, their plain
 PyTorch versions on the CPU. The text tower is differentiable: the prompt
 learners (CoOp, CoCoOp) backpropagate through it to their context vectors,
@@ -14,8 +16,12 @@ The ViT tower's block body can be swapped while its stem and epilogue stay
 shared: the int8 serving tower (``models/quantized.py``) runs K5 then K6 in
 every block through that hook.
 
-Not ported yet: the ModifiedResNet tower (RN50…RN50x16) and
-``encode_image_all_layers``.
+The ModifiedResNet tower (RN50…RN50x16) has no kernel of its own in either
+package: its convolutions are ``F.conv2d`` (cuDNN in fp32 on a GPU, with
+TF32 off, see ``core/device.py``) and its attention pool is the plain
+``multi_head_attention`` below, as the JAX package runs them through XLA.
+Internally it is NCHW with OIHW weights; the input is permuted once at the
+tower's entry.
 """
 
 from __future__ import annotations
@@ -212,11 +218,34 @@ class Transformer(nn.Module):
 
 
 class Conv(nn.Module):
-    """Patch-embedding conv weight, stored OIHW (the JAX params hold HWIO)."""
+    """Conv weight, stored OIHW (the JAX params hold HWIO)."""
 
     def __init__(self, cout: int, cin: int, k: int):
         super().__init__()
         self.w = _param(cout, cin, k, k)
+
+
+class ConvBN(Conv):
+    """Conv with its frozen BatchNorm folded into per-channel ``scale`` and
+    ``bias`` (ref: clip/model.py:10-53; the folding is ``clip_loader._fold_bn``)."""
+
+    def __init__(self, cout: int, cin: int, k: int):
+        super().__init__(cout, cin, k)
+        self.scale = _param(cout)
+        self.bias = _param(cout)
+
+    def forward(self, x: torch.Tensor, stride: int = 1, padding: int = 0):
+        """NCHW ``x`` → conv, then ``* scale + bias`` in that order, as the
+        JAX ``conv2d``."""
+        dt = x.dtype
+        y = F.conv2d(x, self.w.to(dt), stride=stride, padding=padding)
+        return y * self.scale.to(dt)[:, None, None] + self.bias.to(dt)[:, None, None]
+
+
+def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Non-overlapping NCHW average pool: the window sum, then one division
+    by ``window²``, in the JAX ``avg_pool``'s order."""
+    return F.avg_pool2d(x, window, divisor_override=1) / (window * window)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +278,16 @@ class VisionTransformer(nn.Module):
         class/pos embeds, ln_pre, ln_post, proj) stay shared: the int8 tower
         (``models/quantized.py``) plugs in here, as it does through the JAX
         ``vision_transformer(..., block_fn=...)``."""
+        x = self.stem(images)
+        if block_fn is None:
+            x = self.transformer(x)
+        else:
+            for p in block_params:
+                x = block_fn(p, x, self.heads)
+        return self.head(x)
+
+    def stem(self, images: torch.Tensor) -> torch.Tensor:
+        """Patch conv, class and position embeddings, ln_pre → [B, grid²+1, W]."""
         dt = images.dtype
         x = F.conv2d(images.permute(0, 3, 1, 2), self.conv1.w.to(dt),
                      stride=self.patch_size)  # [B, W, grid, grid]
@@ -256,14 +295,109 @@ class VisionTransformer(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # [B, grid², W], row-major patches
         cls = self.class_embed.to(dt).expand(b, 1, w)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
-        x = layer_norm(self.ln_pre, x)
-        if block_fn is None:
-            x = self.transformer(x)
-        else:
-            for p in block_params:
-                x = block_fn(p, x, self.heads)
-        x = layer_norm(self.ln_post, x[:, 0])
-        return x @ self.proj.to(dt)
+        return layer_norm(self.ln_pre, x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """ln_post and the projection of the class token → [B, embed_dim]."""
+        return layer_norm(self.ln_post, x[:, 0]) @ self.proj.to(x.dtype)
+
+
+class Bottleneck(nn.Module):
+    """Anti-aliased bottleneck (ref: clip/model.py:10-53): a stride goes
+    through an average pool after conv2, and the downsample branch (present
+    iff ``stride > 1`` or the width changes) is an average pool, then a 1x1
+    conv."""
+
+    def __init__(self, cin: int, planes: int, stride: int):
+        super().__init__()
+        cout = planes * 4
+        self.stride = stride
+        self.conv1 = ConvBN(planes, cin, 1)
+        self.conv2 = ConvBN(planes, planes, 3)
+        self.conv3 = ConvBN(cout, planes, 1)
+        self.downsample = (ConvBN(cout, cin, 1) if stride > 1 or cin != cout
+                           else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.conv1(x))
+        out = F.relu(self.conv2(out, padding=1))
+        if self.stride > 1:
+            out = avg_pool(out, self.stride)
+        out = self.conv3(out)
+        identity = x
+        if self.downsample is not None:
+            if self.stride > 1:
+                identity = avg_pool(x, self.stride)
+            identity = self.downsample(identity)
+        return F.relu(out + identity)
+
+
+class AttentionPool(nn.Module):
+    """Attention pooling (ref: clip/model.py:56-90): the mean token, prepended
+    to the spatial tokens, queries all of them; only that output row is
+    computed, as in the JAX ``attention_pool``."""
+
+    def __init__(self, spacial: int, embed: int, out_dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.pos_embed = _param(spacial**2 + 1, embed)
+        self.q_proj = Linear(embed, embed)
+        self.k_proj = Linear(embed, embed)
+        self.v_proj = Linear(embed, embed)
+        self.c_proj = Linear(embed, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW ``x`` → [B, out_dim]."""
+        dt = x.dtype
+        tokens = x.flatten(2).transpose(1, 2)  # [B, HW, C], row-major
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = tokens + self.pos_embed.to(dt)
+
+        def linear(p, t):
+            return t @ p.w.to(dt) + p.b.to(dt)
+
+        q = linear(self.q_proj, tokens[:, :1])
+        k = linear(self.k_proj, tokens)
+        v = linear(self.v_proj, tokens)
+        pooled = multi_head_attention(q, k, v, self.heads)
+        return linear(self.c_proj, pooled)[:, 0]
+
+
+class ModifiedResNet(nn.Module):
+    """ResNet image tower (ref: clip/model.py:93-155): a 3-conv stem, an
+    average pool, four layers of bottlenecks (the first at stride 1, the
+    others at stride 2 in their first block), then the attention pool."""
+
+    def __init__(self, arch: ClipArchitecture):
+        super().__init__()
+        w = arch.vision_width
+        self.conv1 = ConvBN(w // 2, 3, 3)
+        self.conv2 = ConvBN(w // 2, w // 2, 3)
+        self.conv3 = ConvBN(w, w // 2, 3)
+        cin = w
+        for li, n_blocks in enumerate(arch.vision_layers):
+            planes = w * 2**li
+            stride = 1 if li == 0 else 2
+            blocks = []
+            for bi in range(n_blocks):
+                blocks.append(Bottleneck(cin, planes, stride if bi == 0 else 1))
+                cin = planes * 4
+            self.add_module(f"layer{li + 1}", nn.ModuleList(blocks))
+        self.layers = len(arch.vision_layers)
+        self.attnpool = AttentionPool(arch.image_resolution // 32, w * 32,
+                                      arch.embed_dim, arch.vision_heads)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images: NHWC [B,R,R,3] in the compute dtype → [B, embed_dim]."""
+        x = images.permute(0, 3, 1, 2)
+        x = F.relu(self.conv1(x, stride=2, padding=1))
+        x = F.relu(self.conv2(x, padding=1))
+        x = F.relu(self.conv3(x, padding=1))
+        x = avg_pool(x, 2)
+        for li in range(self.layers):
+            for block in getattr(self, f"layer{li + 1}"):
+                x = block(x)
+        return self.attnpool(x)
 
 
 def causal_mask(n: int, device=None) -> torch.Tensor:
@@ -291,13 +425,9 @@ class CLIP(nn.Module):
 
     def __init__(self, arch: ClipArchitecture):
         super().__init__()
-        if not arch.is_vit:
-            raise NotImplementedError(
-                f"{arch.name}: the ModifiedResNet image tower is not ported yet"
-            )
         self.arch = arch
         tw = arch.transformer_width
-        self.visual = VisionTransformer(arch)
+        self.visual = VisionTransformer(arch) if arch.is_vit else ModifiedResNet(arch)
         self.token_embedding = _param(arch.vocab_size, tw)
         self.pos_embed = _param(arch.context_length, tw)
         self.transformer = Transformer(tw, arch.transformer_layers,
@@ -310,6 +440,22 @@ class CLIP(nn.Module):
                      compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """images: NHWC [B,R,R,3] float — returns fp32 [B, embed_dim]."""
         return self.visual(images.to(compute_dtype)).float()
+
+    def encode_image_all_layers(self, images: torch.Tensor,
+                                compute_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+        """The projected class token after every block, the ViT debug mode
+        (ref: clip/model.py:225-274, ``all_layer_outputs=True``): ln_post and
+        the projection applied after each block → fp32 [layers, B, embed_dim]."""
+        if not self.arch.is_vit:
+            raise ValueError("all-layer outputs are defined for the ViT tower")
+        visual = self.visual
+        x = visual.stem(images.to(compute_dtype))
+        outs = []
+        for block in visual.transformer.blocks:
+            x = block(x)
+            outs.append(visual.head(x).float())
+        return torch.stack(outs)
 
     def text_features_from_embeddings(
         self, token_embeds: torch.Tensor, eot_index: torch.Tensor,
@@ -337,3 +483,16 @@ class CLIP(nn.Module):
         eot_index = tokens.argmax(dim=-1)  # EOT has the highest token id
         return self.text_features_from_embeddings(embeds, eot_index,
                                                   compute_dtype)
+
+
+def clip_forward(model: CLIP, images: torch.Tensor, tokens: torch.Tensor,
+                 compute_dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contrastive logits (logits_per_image [B_img, B_txt], its transpose)
+    (ref: clip/model.py:408-422)."""
+    img = model.encode_image(images, compute_dtype)
+    txt = model.encode_text(tokens, compute_dtype)
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+    logits_per_image = model.logit_scale.exp() * img @ txt.T
+    return logits_per_image, logits_per_image.T

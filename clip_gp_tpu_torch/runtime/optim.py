@@ -193,6 +193,49 @@ class EpochOptimizer(MultiGroupOptimizer):
         return self.current_lrs["base"]
 
 
+def cosine_decay(init_value: float, decay_steps: int) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule(init_value, decay_steps)``: the lr of
+    update ``t``, counted from 0 (optax's first update reads ``schedule(0)``)."""
+    def sched(t: int) -> float:
+        return init_value * 0.5 * (1 + math.cos(math.pi * min(t, decay_steps)
+                                                / decay_steps))
+    return sched
+
+
+class StepAdamW:
+    """``optax.adamw(schedule, eps=eps, weight_decay=weight_decay)`` on
+    ``torch.optim.AdamW``, the lr set from ``schedule`` before every update.
+
+    The two meet where their defaults differ: optax's ``adamw`` defaults to
+    a weight decay of 1e-4 and torch's to 1e-2, so callers pass it; betas
+    (0.9, 0.999) and eps 1e-8 are the same default in both, and ``eps`` is
+    passed through verbatim (0 included). Both decouple the decay as
+    ``p -= lr·wd·p`` beside the Adam step ``lr·m̂/(√v̂ + eps)``. Optax updates
+    every leaf, so a tensor the loss did not reach gets a zero gradient here
+    (its decay still applies), where torch would skip it."""
+
+    def __init__(self, params: Iterable[torch.Tensor], schedule: Callable[[int], float],
+                 weight_decay: float, eps: float = 1e-8):
+        self.params = list(params)
+        self.schedule = schedule
+        self.count = 0
+        self.opt = torch.optim.AdamW(self.params, lr=schedule(0), betas=(0.9, 0.999),
+                                     eps=eps, weight_decay=weight_decay,
+                                     foreach=False)
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for pg in self.opt.param_groups:
+            pg["lr"] = self.schedule(self.count)
+        self.opt.step()
+        self.count += 1
+
+
 class _OverrideLr:
     """Config view with a different base lr (param-group override)."""
 

@@ -20,7 +20,8 @@ per loaded tower.
 Not ported yet: reference-format checkpoints (``model.pth.tar-*``, whose
 adoption needs ``runtime/ref_checkpoint.py``; ``load_model`` raises on one),
 the disk feature cache, sharded extraction, and TensorBoard
-(``TRAIN.ENABLE_TENSORBOARD`` raises ``NotImplementedError``).
+(``TRAIN.ENABLE_TENSORBOARD`` raises ``NotImplementedError``; the heads'
+``write_scalar`` calls find no writer and do nothing).
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import torch
 from clip_gp_tpu_torch.core.device import resolve_device
 from clip_gp_tpu_torch.core.seeding import KeySequence
 from clip_gp_tpu_torch.data.transforms import preprocess_fn
-from clip_gp_tpu_torch.methods.common import extract_with
 from clip_gp_tpu_torch.models import quantized
 from clip_gp_tpu_torch.models.clip_loader import load_clip_resolved
 from clip_gp_tpu_torch.ops.metrics import (
@@ -129,6 +129,8 @@ class BaseTrainer:
         self.zero_shot_metrics: Optional[Dict] = None
         self._best_val_acc = float("-inf")
         self._val_feature_memo: Optional[Tuple] = None
+        # the TensorBoard writer: never set while TensorBoard is unported
+        self._writer = None
         # set by build_model
         self.clip_arch = None
         self.clip_model = None
@@ -173,6 +175,12 @@ class BaseTrainer:
         # the encode plan (and its quantized tower) belongs to the weights
         # just replaced
         self._encode_plan_cached = None
+        if (getattr(self.config.model, "int8_inference", False)
+                and not self.clip_arch.is_vit):
+            # at load time, as the JAX package warns: the int8 tower covers
+            # the ViT towers only, and the frozen encode runs in fp32
+            print("[WARN] MODEL.INT8_INFERENCE covers the ViT towers only; "
+                  f"falling back to fp32 for {self.clip_arch.name}")
         return self.clip_arch, self.clip_model
 
     def _int8_effective(self) -> bool:
@@ -201,6 +209,10 @@ class BaseTrainer:
         features [N,D]): the fp32 tower, or with ``MODEL.INT8_INFERENCE`` the
         int8 tower in bf16 (every block K5 then K6). The training math is the
         same either way: every method trains on the extracted features."""
+        # imported here: importing the methods package registers the trainers,
+        # which import this module
+        from clip_gp_tpu_torch.methods.common import extract_with
+
         plan = self._encode_plan()
 
         def encode(images_u8: np.ndarray) -> torch.Tensor:
@@ -240,6 +252,11 @@ class BaseTrainer:
         if self.config.resume:
             self.start_epoch = self.load_model(self.config.resume)
         self.time_start = time.time()
+
+    def write_scalar(self, tag: str, value, global_step=None) -> None:
+        """A TensorBoard scalar; nothing without a writer."""
+        if self._writer is not None and isinstance(value, (int, float)):
+            self._writer.add_scalar(tag, value, global_step)
 
     def after_train(self):
         print("Finish training")
