@@ -107,10 +107,31 @@ exits non-zero before printing any result. Phases, each raising on failure:
    encode and never from an RN image encode; and one CLIP-Adapter epoch on
    ViT-B/16 (path ``vit_clip_adapter``), whose every step re-encodes its
    images through K1/K2 in all 12 blocks;
-10. output: one ``{"kernels": [...]}`` line, then as the last line
+10. single-trial surfaces, on ViT-B/16 through the CLI over the Synthetic
+   dataset (4 classes, 4 shots, 16 templates, 3 epochs): (a) the Adapter +
+   GP with ``--optimizer muon``, ``TRAIN.ENABLE_TENSORBOARD``, the feature
+   cache (``CLIP_GP_TPU_TORCH_FEATURE_CACHE``) and a ``torch.profiler``
+   trace (``CLIP_GP_TPU_TORCH_PROFILE_DIR``), printing ``[single-trial]``
+   lines with the phase report (``feature_extraction``, ``train_epochs``),
+   the cache file, the TensorBoard outcome, the trace and the K1/K2
+   launches (exactly the text, train and test encodes); (b) one Muon step
+   from the trained parameters and their gradient on the card, with
+   cuBLAS's reduced-precision bf16 reductions on and off, against the CPU
+   (MUON_TOL); (c) the same run again from an empty memo: the test split
+   loads from the disk cache bit for bit, and K1/K2 launch only for the
+   text and train encodes; (d) ``FINETUNE_ON_TEST``: 100 ``[SANITY]``
+   epochs; (e) the state of (a) written as a reference-format
+   ``model.pth.tar-3`` and served by ``--eval-only`` against its npz: top-1
+   equal, metrics within 1e-3; (f) an ImageNet-layout tree of
+   OOD_CLASSES classes at 224 px, the Adapter trained on it for 1 epoch,
+   then ``clip_gp_tpu_torch.ood_eval`` on ImageNet-V2 (every class) and
+   ImageNet-A (OOD_SUBSET classes, remapped by wnid) (paths
+   ``single_trial``, ``cached``, ``finetune_on_test``, ``eval_npz``,
+   ``ref_ckpt``, ``ood_train``, ``ood``);
+11. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-9 sets the launch counts to 0 just before each run it
+Each of phases 4-10 sets the launch counts to 0 just before each run it
 drives and reads them just after; a kernel's ``launches`` in the JSON line is
 the sum over those runs, and ``launches_by_path`` gives each.
 """
@@ -177,7 +198,7 @@ KERNELS = {
 
 # (name, batch, tokens, width, heads, causal): the main path's two towers —
 # ViT-B/16 at 32 images and at the image-encode device batch of the training
-# path (methods/common.py EXTRACT_DEVICE_BATCH), the text tower at the
+# path (methods/common.py extract_device_batch()), the text tower at the
 # template-encode batch (encode_templates' batch_size)
 SHAPES = [
     ("vit-b16", 32, 197, 768, 12, False),
@@ -1733,12 +1754,14 @@ def _tower_grad(model, device, n_prompts=100, n=24, n_images=32):
 # ---------------------------------------------------------------------------
 
 class _ArrayLoader:
-    """Batches of in-memory uint8 images, as BatchLoader yields them."""
+    """Batches of in-memory uint8 images, as BatchLoader yields them, over
+    the split's items (``data_source``: the feature cache keys a split by
+    its items' paths and labels)."""
 
-    def __init__(self, images, labels, batch_size):
+    def __init__(self, images, labels, batch_size, items):
         self.images, self.labels = images, labels
         self.batch_size = batch_size
-        self.data_source = list(range(len(labels)))
+        self.data_source = items
 
     def __len__(self):
         return math.ceil(len(self.labels) / self.batch_size)
@@ -1774,14 +1797,17 @@ class InMemoryDataManager:
             split, arrays = ("train", train) if i < shots else ("test", test)
             arrays[0].append(img)
             arrays[1].append(c)
-            items[split].append(Datum(f"synthetic/{c}/{i}", c, classname=synthetic_class_name(c)))
+            # a path per generated image: the same path is the same pixels
+            path = f"synthetic-{num_classes}x{images_per_class}-{size}px-seed{config.seed}/{c}/{i}"
+            items[split].append(Datum(path, c, classname=synthetic_class_name(c)))
         self.dataset = DatasetBase(train_x=items["train"], test=items["test"])
         bs = config.dataloader.batch_size_train
         self.train_images = np.stack(train[0])
         self.train_labels = np.asarray(train[1], np.int32)
-        self.train_loader_x = _ArrayLoader(self.train_images, self.train_labels, bs)
+        self.train_loader_x = _ArrayLoader(self.train_images, self.train_labels, bs,
+                                           items["train"])
         self.test_loader = _ArrayLoader(np.stack(test[0]), np.asarray(test[1], np.int32),
-                                        config.dataloader.batch_size_test)
+                                        config.dataloader.batch_size_test, items["test"])
         self.val_loader = None
         self.num_classes = self.dataset.num_classes
         self.lab2cname = self.dataset.lab2cname
@@ -1894,7 +1920,7 @@ def phase_trainer(backbone="ViT-B/16"):
     dm = InMemoryDataManager(c, images_per_class=20)
     n_train, n_test = len(dm.dataset.train_x), len(dm.dataset.test)
     launches, metrics, seconds, _ = _train(c, dm)
-    batch = common.EXTRACT_DEVICE_BATCH
+    batch = common.extract_device_batch()
     image_encodes = math.ceil(n_test / batch) + math.ceil(n_train / batch)
     text_encodes = math.ceil(4 * c.adapter.num_templates / 256)
     need = (arch.vision_layers * image_encodes
@@ -2111,7 +2137,7 @@ def phase_serving(device, backbone="ViT-B/16", n_pngs=64):
         # every ViT block of every int8 image encode: K5 and K6; the image
         # encodes launch no K1/K2 (those come from the text side only). The
         # Synthetic test split (24 of 80 images) is one extraction batch.
-        batch = common.EXTRACT_DEVICE_BATCH
+        batch = common.extract_device_batch()
         encodes = {"eval_only_int8": math.ceil(24 / batch),
                    "predict_int8": math.ceil(n_pngs / batch)}
         for path, n_encodes in encodes.items():
@@ -2254,7 +2280,7 @@ def phase_blocks(device, n=197, d=768, heads=12, batch=32, lineage_batch=512):
 # ---------------------------------------------------------------------------
 
 # RN50 fp32 encode rates at 32 images and at the trainers' device batch
-# (methods/common.py EXTRACT_DEVICE_BATCH)
+# (methods/common.py extract_device_batch())
 RN50_RATE_BATCHES = (32, 512)
 
 
@@ -2434,7 +2460,7 @@ def phase_vit_clip_adapter(backbone="ViT-B/16"):
     dm = InMemoryDataManager(c, images_per_class=24)
     launches, metrics, seconds, _ = _train(c, dm)
     steps = len(dm.train_loader_x)
-    image_encodes = math.ceil(len(dm.dataset.test) / common.EXTRACT_DEVICE_BATCH) + steps
+    image_encodes = math.ceil(len(dm.dataset.test) / common.extract_device_batch()) + steps
     text_encodes = math.ceil(4 * c.adapter.num_templates / 256)
     log(f"[vit clip-adapter] CLIP-Adapter {backbone}: {len(dm.dataset.train_x)} train / "
         f"{len(dm.dataset.test)} test images, {steps} steps in {seconds:.2f} s; "
@@ -2444,6 +2470,418 @@ def phase_vit_clip_adapter(backbone="ViT-B/16"):
     _check_launches("vit clip-adapter", launches, {"fused_ln_attention_block": need,
                                                    "fused_ln_mlp": need})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+# phase 10 (b), one Muon step on the card against the same step on the CPU:
+# the JAX suite's tolerances and step (tests/test_reference_executed_muon.py)
+MUON_TOL = {"2d": 8e-3, "rest": 1e-6}
+MUON_STEP = {"lr": 0.02, "weight_decay": 0.01}
+# phase 10 (f): the ImageNet-layout tree's classes, and ImageNet-A's subset
+OOD_CLASSES, OOD_SUBSET = 1000, 3
+
+
+def _single_trial_argv(root, out, backbone, extra=(), opts=()):
+    """``clip_gp_tpu_torch.train`` flags of phase 10's run: the Adapter with
+    the GP on the Synthetic dataset (4 classes, 4 shots) at the backbone's
+    resolution, 16 templates, 3 epochs of Muon, TensorBoard and checkpoints
+    on."""
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+
+    res = ARCHITECTURES[backbone].image_resolution
+    return [
+        "--dataset", "Synthetic", "--root", str(root), "--shots", "4",
+        "--backbone", backbone, "--seed", "1", "--output-dir", str(out),
+        "--batch-size", "32", "--num-templates", "16", "--use-gp",
+        "--optimizer", "muon", *extra,
+        "INPUT.SIZE", f"({res}, {res})", "INPUT.TRANSFORMS", "['normalize']",
+        "TRAINER.ADAPTER.CLIP_ADAPTER_EPOCHS", "3", "DATALOADER.NUM_WORKERS", "4",
+        "TRAIN.PRINT_FREQ", "100", "TRAIN.ENABLE_ADAPTER_CHECKPOINTS", "True",
+        "TRAIN.ENABLE_TENSORBOARD", "True", *opts,
+    ]
+
+
+def _entry_run(main, argv):
+    """An entry point's ``main(argv)`` with the launch counts and the phase
+    report set to 0 just before and read just after: (launches, phases,
+    trainers built, seconds)."""
+    from clip_gp_tpu_torch.core import registry
+    from clip_gp_tpu_torch.core.logging import reset_tee
+    from clip_gp_tpu_torch.runtime import profiling
+
+    built = []
+    build = registry.build_trainer
+
+    def record(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    profiling.reset_phases()
+    _reset_counts()
+    start = time.perf_counter()
+    with mock.patch.object(registry, "build_trainer", record):
+        try:
+            main(argv)
+        finally:
+            reset_tee()
+    seconds = time.perf_counter() - start
+    return _counts(), profiling.phase_report(), built, seconds
+
+
+def _run_metrics(out):
+    import numpy as np
+
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)["metrics"]
+    for key in ("top1_acc", "macro_f1", "ece", "aece"):
+        if not np.isfinite(metrics[key]):
+            raise RuntimeError(f"{out}/metrics.json: {key} = {metrics[key]}")
+    return metrics
+
+
+def _tensorboard_outcome(run):
+    events = [f for f in os.listdir(os.path.join(run, "tensorboard"))
+              if f.startswith("events.out.tfevents")]
+    if events:
+        size = sum(os.path.getsize(os.path.join(run, "tensorboard", f)) for f in events)
+        return f"events written: {len(events)} file(s), {size} bytes"
+    with open(os.path.join(run, "log.txt")) as f:
+        if "tensorboardX unavailable; scalar logging disabled" in f.read():
+            return "tensorboardX unavailable; scalar logging disabled"
+    raise RuntimeError(f"{run}: no TensorBoard events and no 'unavailable' line")
+
+
+def _check_exact(what, launches, want):
+    for kernel, count in want.items():
+        if launches[kernel] != count:
+            raise RuntimeError(f"{what}: {kernel} launched {launches[kernel]} times, "
+                               f"expected {count}")
+
+
+def _flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _muon_card_vs_cpu(trainer):
+    """(b): one Muon step from the trained Adapter's parameters with the
+    gradient of its loss on the training features, on the card (with cuBLAS's
+    reduced-precision bf16 reductions on and off) and on the CPU."""
+    import torch
+
+    from clip_gp_tpu_torch.runtime.optim import MuonWithAuxAdam
+
+    leaves = dict(_flat_leaves(trainer.params))
+    for p in leaves.values():
+        p.grad = None
+    loss, _ = trainer._loss(trainer._features_train_dev, trainer._labels_train_dev,
+                            trainer.keys.next())
+    loss.backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().clone()
+             for k, p in leaves.items()}
+    matmul = torch.backends.cuda.matmul
+    configured = matmul.allow_bf16_reduced_precision_reduction
+
+    def step(device, reduced=configured):
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        try:
+            ps = {k: p.detach().to(device).clone() for k, p in leaves.items()}
+            opt = MuonWithAuxAdam(list(ps.values()), **MUON_STEP)
+            for k, p in ps.items():
+                p.grad = grads[k].to(device).clone()
+            opt.step()
+            return {k: p.cpu() for k, p in ps.items()}
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = configured
+
+    cpu = step("cpu")
+    moved = max((cpu[k] - leaves[k].detach().cpu()).abs().max().item() for k in cpu
+                if cpu[k].dim() >= 2)
+    errs = {}
+    for reduced in (True, False):
+        card = step("cuda", reduced)
+        errs[reduced] = {
+            group: max([(card[k] - cpu[k]).abs().max().item() for k in cpu
+                        if (cpu[k].dim() >= 2) == (group == "2d")] or [0.0])
+            for group in ("2d", "rest")
+        }
+    log(f"[single-trial] (b) Muon step card vs CPU on {len(leaves)} Adapter+GP leaves "
+        f"(lr {MUON_STEP['lr']}, wd {MUON_STEP['weight_decay']}; 2-D leaves moved by "
+        f"up to {moved:.3e}): bf16 reduced-precision reduction on: 2-D "
+        f"{errs[True]['2d']:.3e}, rest {errs[True]['rest']:.3e}; off: 2-D "
+        f"{errs[False]['2d']:.3e}, rest {errs[False]['rest']:.3e}; configured "
+        f"{'on' if configured else 'off'} (limits {MUON_TOL['2d']} / {MUON_TOL['rest']})")
+    for group, err in errs[configured].items():
+        if not err <= MUON_TOL[group]:
+            raise RuntimeError(f"Muon card vs CPU: {group} error {err:.3e} over "
+                               f"{MUON_TOL[group]}")
+
+
+def _reference_checkpoint(trainer, path, epoch):
+    """(e): the trained Adapter+GP state as the reference saves it
+    (``torch.save`` of state_dict, epoch, optimizer and scheduler, ref:
+    utils/trainer.py:347-374), under the module key names the converter
+    reads (clip_gp_tpu_torch/runtime/ref_checkpoint.py)."""
+    import torch
+
+    p, b = trainer.params, trainer.gp_buffers
+    gp = p["gp"]
+    g = "gp_weighter."
+    vd = g + "variational_strategy._variational_distribution."
+    sd = {
+        "visual_proj.weight": p["visual_proj"],
+        g + "_templates": b["templates"],
+        g + "_templates_red": b["templates_red"],
+        g + "variational_strategy.inducing_points": torch.cat(
+            [b["templates_red"], gp["inducing_token"]], dim=1),
+        vd + "variational_mean": gp["variational_mean"],
+        vd + "chol_variational_covar": gp["chol_variational_covar"],
+        g + "mean_module.cls_bias": gp["cls_bias"],
+        g + "mean_module.tmp_bias": gp["tmp_bias"],
+        g + "mean_module.f0": b["f0"],
+        g + "A.weight": gp["A"],
+        g + "covar_module.base_kernel.raw_lengthscale": gp["raw_lengthscale"],
+        g + "covar_module.raw_outputscale": gp["raw_outputscale"],
+    }
+    sd = {k: v.detach().cpu().clone() for k, v in sd.items()}
+    dummy = [torch.nn.Parameter(torch.zeros(1))]
+    sched = torch.optim.lr_scheduler.CosineAnnealingLR(torch.optim.AdamW(dummy), T_max=3)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"state_dict": sd, "epoch": epoch, "optimizer": trainer.opt.opt.state_dict(),
+                "scheduler": sched.state_dict()}, path)
+
+
+def _imagenet_tree(root, size=224):
+    """(f): an ImageNet-layout tree at ``size`` px: OOD_CLASSES wnids in
+    classnames.txt, ImageNet train and val with one image per class,
+    ImageNet-V2 (its numeric label folders, one image each) and ImageNet-A
+    with the first OOD_SUBSET classes, two images each."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    jpegs = []
+    for _ in range(4):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), np.uint8)).save(
+            buf, format="JPEG")
+        jpegs.append(buf.getvalue())
+    wnids = [f"n{i:08d}" for i in range(OOD_CLASSES)]
+    names = "".join(f"{w} class {i}\n" for i, w in enumerate(wnids))
+
+    def write(folder, name, i):
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(jpegs[i % len(jpegs)])
+
+    for dataset in ("imagenet", "imagenetv2", "imagenet-adversarial"):
+        os.makedirs(os.path.join(root, dataset), exist_ok=True)
+        with open(os.path.join(root, dataset, "classnames.txt"), "w") as f:
+            f.write(names)
+    for i, w in enumerate(wnids):
+        for split in ("train", "val"):
+            write(os.path.join(root, "imagenet", "images", split, w), "0.JPEG", i)
+        write(os.path.join(root, "imagenetv2", "imagenetv2-matched-frequency-format-val",
+                           str(i)), "0.jpeg", i + 1)
+    for i, w in enumerate(wnids[:OOD_SUBSET]):
+        for j in range(2):
+            write(os.path.join(root, "imagenet-adversarial", "imagenet-a", w), f"{j}.jpg",
+                  i + j + 2)
+
+
+def _phase_ood(tmp, backbone):
+    """(f): train the Adapter for 1 epoch on the ImageNet tree with the CLI,
+    then evaluate it on ImageNet-V2 (every class) and ImageNet-A (a subset,
+    remapped by wnid) with the OOD entry."""
+    from clip_gp_tpu_torch import ood_eval
+    from clip_gp_tpu_torch import train as cli
+    from clip_gp_tpu_torch.methods import common
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+
+    res = ARCHITECTURES[backbone].image_resolution
+    root, run = os.path.join(tmp, "imagenet-tree"), os.path.join(tmp, "ood_run")
+    start = time.perf_counter()
+    _imagenet_tree(root, res)
+    tree_s = time.perf_counter() - start
+    launches_train, _, _, train_s = _entry_run(cli.main, [
+        "--dataset", "ImageNet", "--root", root, "--shots", "1", "--backbone", backbone,
+        "--seed", "1", "--output-dir", run, "--batch-size", "32", "--num-templates", "2",
+        "INPUT.SIZE", f"({res}, {res})", "TRAINER.ADAPTER.CLIP_ADAPTER_EPOCHS", "1",
+        "DATALOADER.NUM_WORKERS", "4", "TRAIN.PRINT_FREQ", "100",
+        "TRAIN.ENABLE_ADAPTER_CHECKPOINTS", "True"])
+    launches, _, built, ood_s = _entry_run(ood_eval.main, [
+        "--model-dir", run, "--root", root, "--variants", "ImageNetV2,ImageNetA"])
+    with open(os.path.join(run, "ood_metrics.json")) as f:
+        summary = json.load(f)
+    want = {"ImageNetV2": (OOD_CLASSES, OOD_CLASSES), "ImageNetA": (OOD_SUBSET, 2 * OOD_SUBSET)}
+    for name, (classes, images) in want.items():
+        row = summary["variants"][name]
+        if "error" in row or (row["num_classes"], row["num_images"]) != (classes, images):
+            raise RuntimeError(f"ood_metrics.json {name}: {row}")
+        metrics = _run_metrics(os.path.join(run, "ood", name))
+        log(f"[single-trial] (f) OOD {name}: {classes} classes, {images} images; "
+            f"{_metrics_line(metrics)}")
+    if len(built) != 2:
+        raise RuntimeError(f"ood_eval built {len(built)} trainers, expected 2")
+    log(f"[single-trial] (f) ImageNet tree of {OOD_CLASSES} classes at {res} px written in "
+        f"{tree_s:.2f} s; trained 1 epoch in {train_s:.2f} s; OOD entry in {ood_s:.2f} s; "
+        f"launches train {launches_train}, OOD {launches}")
+    # K1/K2 in every block of each encode: the training run encodes 2
+    # templates of every class, its train and its val split; the OOD entry
+    # builds one trainer a variant, each encoding 2 templates of its own
+    # classes and its test split
+    arch = ARCHITECTURES[backbone]
+    layers, vision = arch.transformer_layers, arch.vision_layers
+    batch = common.extract_device_batch()
+    want = {
+        "ood_train": (layers * math.ceil(2 * OOD_CLASSES / 256)
+                      + 2 * vision * math.ceil(OOD_CLASSES / batch)),
+        "ood": (layers * (math.ceil(2 * OOD_CLASSES / 256) + math.ceil(2 * OOD_SUBSET / 256))
+                + vision * (math.ceil(OOD_CLASSES / batch) + math.ceil(2 * OOD_SUBSET / batch))),
+    }
+    for path, got in (("ood_train", launches_train), ("ood", launches)):
+        _check_exact(path, got, {"fused_ln_attention_block": want[path],
+                                 "fused_ln_mlp": want[path]})
+    return {"ood_train": launches_train, "ood": launches}
+
+
+def phase_single_trial(backbone="ViT-B/16"):
+    """Phase 10: the single-trial surfaces of ``train.py`` on ViT-B/16 full
+    width: (a) the Adapter + GP with Muon, TensorBoard, the feature cache and
+    the trace; (b) a Muon step on the card against the CPU; (c) the same run
+    again, its test split from the cache; (d) FINETUNE_ON_TEST; (e) the
+    trained state served from a reference-format checkpoint against its npz;
+    (f) the OOD entry. Returns the launches of each run."""
+    import numpy as np
+
+    from clip_gp_tpu_torch import train as cli
+    from clip_gp_tpu_torch.methods import common
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+    from clip_gp_tpu_torch.runtime import feature_cache
+
+    os.environ["CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS"] = "1"
+    arch = ARCHITECTURES[backbone]
+    batch = common.extract_device_batch()
+    # the Synthetic dataset: 4 classes, 16 training images at 4 shots, 24 test
+    text = arch.transformer_layers * math.ceil(4 * 16 / 256)
+    train_enc = arch.vision_layers * math.ceil(16 / batch)
+    test_enc = arch.vision_layers * math.ceil(24 / batch)
+    kernels = ("fused_ln_attention_block", "fused_ln_mlp")
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, cache, prof = (os.path.join(tmp, d) for d in ("data", "cache", "prof"))
+        with mock.patch.dict(os.environ, {"CLIP_GP_TPU_TORCH_FEATURE_CACHE": cache}):
+            # (a) the first run, traced
+            feature_cache.memo_clear()
+            run_a = os.path.join(tmp, "run_a")
+            with mock.patch.dict(os.environ, {"CLIP_GP_TPU_TORCH_PROFILE_DIR": prof}):
+                launches, phases_a, built, seconds = _entry_run(
+                    cli.main, _single_trial_argv(data, run_a, backbone))
+            trainer = built[0]
+            by_path["single_trial"] = launches
+            metrics_a = _run_metrics(run_a)
+            files = sorted(os.listdir(cache))
+            traces = [os.path.join(d, f) for d, _, fs in os.walk(prof) for f in fs]
+            log(f"[single-trial] (a) Adapter+GP {backbone}, Muon, 3 epochs in "
+                f"{seconds:.2f} s; {_metrics_line(metrics_a)}")
+            log(f"[single-trial] (a) phases {json.dumps(phases_a)}")
+            log(f"[single-trial] (a) feature cache files written: {files}")
+            log(f"[single-trial] (a) tensorboard {_tensorboard_outcome(run_a)}")
+            device_events = 0
+            for t in traces:
+                with open(t) as f:
+                    device_events += sum(e.get("cat") == "kernel"
+                                         for e in json.load(f)["traceEvents"])
+            log(f"[single-trial] (a) trace: {len(traces)} file(s), "
+                f"{sum(os.path.getsize(t) for t in traces)} bytes under {prof}, "
+                f"{device_events} device kernel events")
+            log(f"[single-trial] (a) launches K1 {launches[kernels[0]]}, K2 "
+                f"{launches[kernels[1]]} (text {text}, train {train_enc}, test {test_enc})")
+            tag = f"_torch-{trainer.device.type}.npz"
+            if len(files) != 1 or not files[0].endswith(tag):
+                raise RuntimeError(f"feature cache: expected one *{tag} file, {files}")
+            if not traces or not all(os.path.getsize(t) for t in traces):
+                raise RuntimeError(f"no torch.profiler trace under {prof}")
+            if (phases_a.get("feature_extraction", {}).get("count") != 2
+                    or phases_a.get("train_epochs", {}).get("count") != 1):
+                raise RuntimeError(f"phase report: {phases_a}")
+            _check_exact("single-trial (a)", launches,
+                         {k: text + train_enc + test_enc for k in kernels})
+
+            # (b) Muon on the card against the CPU
+            _muon_card_vs_cpu(trainer)
+
+            # (c) the same config again, from a fresh memo: the test split
+            # loads from the disk cache and launches nothing on the image side
+            feature_cache.memo_clear()
+            run_c = os.path.join(tmp, "run_c")
+            launches_c, phases_c, built_c, seconds_c = _entry_run(
+                cli.main, _single_trial_argv(data, run_c, backbone))
+            by_path["cached"] = launches_c
+            with open(os.path.join(run_c, "log.txt")) as f:
+                hits = [line.strip() for line in f if "[feature-cache] hit" in line]
+            with np.load(os.path.join(cache, files[0])) as stored:
+                stored_feats = stored["features"]
+            equal = (np.array_equal(built_c[0].features_test, stored_feats)
+                     and np.array_equal(built_c[0].features_test, trainer.features_test))
+            log(f"[single-trial] (c) second run in {seconds_c:.2f} s: {len(hits)} cache "
+                f"hit(s) ({hits[0] if hits else ''}); image-tower K1 on the cached split "
+                f"{launches[kernels[0]] - text - train_enc} in (a), "
+                f"{launches_c[kernels[0]] - text - train_enc} in (c); features "
+                f"equal bit for bit: {equal}; feature_extraction "
+                f"{phases_a['feature_extraction']['total_s']:.3f} s "
+                f"({phases_a['feature_extraction']['count']} extractions) in (a), "
+                f"{phases_c['feature_extraction']['total_s']:.3f} s "
+                f"({phases_c['feature_extraction']['count']}) in (c)")
+            if len(hits) != 1 or not equal:
+                raise RuntimeError("the second run did not load the cached test split")
+            _check_exact("single-trial (c)", launches_c, {k: text + train_enc for k in kernels})
+
+            # (d) FINETUNE_ON_TEST on the run's (cached) test features
+            run_d = os.path.join(tmp, "run_d")
+            launches_d, _, _, seconds_d = _entry_run(cli.main, _single_trial_argv(
+                data, run_d, backbone, opts=["TRAINER.ADAPTER.FINETUNE_ON_TEST", "True"]))
+            by_path["finetune_on_test"] = launches_d
+            with open(os.path.join(run_d, "log.txt")) as f:
+                sanity = [line.strip() for line in f if line.startswith("[SANITY]")]
+            epochs = [line for line in sanity if "fine-tune epoch" in line]
+            log(f"[single-trial] (d) FINETUNE_ON_TEST in {seconds_d:.2f} s: {len(epochs)} "
+                f"epochs; {sanity[0] if sanity else ''} | {epochs[-1] if epochs else ''}")
+            if len(epochs) != 100 or "epoch 100/100" not in epochs[-1]:
+                raise RuntimeError(f"FINETUNE_ON_TEST: {len(epochs)} epoch lines")
+            _run_metrics(run_d)
+
+            # (e) the state of (a) served from its npz and from a
+            # reference-format checkpoint
+            ref = os.path.join(tmp, "ref")
+            _reference_checkpoint(trainer, os.path.join(ref, "adapter", "model.pth.tar-3"), 3)
+            served = {}
+            for name, model_dir in (("eval_npz", run_a), ("ref_ckpt", ref)):
+                out = os.path.join(tmp, name)
+                by_path[name], _, _, secs = _entry_run(cli.main, _single_trial_argv(
+                    data, out, backbone, extra=["--eval-only", "--model-dir", model_dir]))
+                served[name] = _run_metrics(out)
+                with open(os.path.join(out, "log.txt")) as f:
+                    loaded = [line.strip() for line in f if "checkpoint from" in line]
+                log(f"[single-trial] (e) {name} in {secs:.2f} s ({loaded}): "
+                    f"{_metrics_line(served[name])}")
+            diff = {k: abs(served["ref_ckpt"][k] - served["eval_npz"][k])
+                    for k in ("top1_acc", "macro_f1", "ece", "aece")}
+            log(f"[single-trial] (e) reference checkpoint vs npz: |diff| {diff}")
+            if diff["top1_acc"] != 0 or max(diff.values()) > 1e-3:
+                raise RuntimeError(f"reference-checkpoint serving differs from the npz: {diff}")
+
+        # (f) OOD
+        by_path.update(_phase_ood(tmp, backbone))
+    return by_path
 
 
 def main() -> int:
@@ -2479,6 +2917,7 @@ def main() -> int:
         by_path["rn50_encode"] = phase_rn50_tower(device, smi, pt)
         by_path.update(phase_rn50_trainers(pt))
     by_path["vit_clip_adapter"] = phase_vit_clip_adapter()
+    by_path.update(phase_single_trial())
     for cell in cells:
         counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())

@@ -25,6 +25,18 @@ def set_random_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
+def get_random_state():
+    """The host streams' states (ref: utils/reproducibility.py:42-59): python
+    ``random`` and numpy, as the JAX package snapshots them. Device noise
+    comes from ``KeySequence``, which the run seed alone determines."""
+    return {"python": random.getstate(), "numpy": np.random.get_state()}
+
+
+def set_random_state(state) -> None:
+    random.setstate(state["python"])
+    np.random.set_state(state["numpy"])
+
+
 class KeySequence:
     """Deterministic stream of ``torch.Generator``s on ``device`` (by default
     the GPU, see ``core/device.py``) derived from the run seed; each

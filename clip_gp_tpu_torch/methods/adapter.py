@@ -21,10 +21,11 @@ subset of the trained classes selects their rows of the per-class state and
 of the GP buffers saved beside the checkpoints (``remap_trainable_state``).
 
 With ``PREFIT_ON_FULL_SET`` the template weights are scored on the full
-train split (``common.prefit_full_set_features``).
-
-Not ported yet: the finetune-on-test sanity loop and reference-checkpoint
-adoption.
+train split (``common.prefit_full_set_features``). A reference-format
+checkpoint is adopted with its own GP basis (``adopt_reference_state``), and
+``FINETUNE_ON_TEST`` runs the reference's sanity loop on the test features
+after training (``_finetune_on_test``). With TensorBoard on, every step
+writes ``train/loss`` and ``train/lr``.
 """
 
 from __future__ import annotations
@@ -42,15 +43,13 @@ from clip_gp_tpu_torch.gp import svgp
 from clip_gp_tpu_torch.methods import common
 from clip_gp_tpu_torch.ops.metrics import AverageMeter, compute_accuracy
 from clip_gp_tpu_torch.runtime.optim import MultiGroupOptimizer
+from clip_gp_tpu_torch.runtime.profiling import maybe_trace, phase_timer
 from clip_gp_tpu_torch.runtime.trainer_base import BaseTrainer
 
 
 @TRAINER_REGISTRY.register("Adapter")
 class Trainer(BaseTrainer):
     def __init__(self, config, dataset_manager, device=None):
-        if getattr(config.adapter, "finetune_on_test", False):
-            raise NotImplementedError(
-                "TRAINER.ADAPTER.FINETUNE_ON_TEST is not ported yet")
         if getattr(config.dataset, "full_finetune", False):
             config.dataset.num_shots = 0
         super().__init__(config, dataset_manager, device)
@@ -143,7 +142,9 @@ class Trainer(BaseTrainer):
             return torch.einsum("km,kmd->kd", w, e), w
         return e.mean(dim=1), None
 
-    def _loss(self, features, labels, generator):
+    def _loss(self, features, labels, generator, l2_reg: bool = True):
+        """MC cross-entropy + β·KL (GP) + the visual projection's L2 pull to
+        the identity (``l2_reg``; the finetune-on-test loop has none)."""
         config = self.config
         shots = int(config.dataset.num_shots)
         projected = features @ self.params["visual_proj"].T
@@ -162,7 +163,7 @@ class Trainer(BaseTrainer):
             kl = svgp.kl_divergence(self.params["gp"]).sum()
             total = total + float(config.adapter.gp_beta) * kl
         l2 = zero
-        if not bool(config.adapter.freeze_visual_proj) and shots > 0:
+        if l2_reg and not bool(config.adapter.freeze_visual_proj) and shots > 0:
             w = self.params["visual_proj"]
             eye = torch.eye(w.shape[0], device=w.device)
             l2 = ((w - eye) ** 2).sum() * (float(config.adapter.l2_lambda) / shots)
@@ -214,6 +215,58 @@ class Trainer(BaseTrainer):
         state when it swaps the params in."""
         self.params = self._adopt_state(state)
         self._build_optimizer()
+
+    def adopt_reference_state(self, state, extra):
+        """A converted reference checkpoint (``runtime/ref_checkpoint.py``):
+        its GP state lives in the checkpoint's own PCA basis (torch SVD, with
+        other column signs than numpy's), so its buffers replace the ones
+        ``build_model`` derived, once the shapes and the mode match."""
+        has_gp = "gp" in state
+        if has_gp != (self.mode == "gp"):
+            raise ValueError(
+                "reference checkpoint "
+                + ("carries" if has_gp else "lacks")
+                + " GP state but this config has USE_GP "
+                + ("disabled" if has_gp else "enabled")
+                + "; pass the run's own config"
+            )
+        for name, present in (("template_logits", self.mode == "logits"),
+                              ("template_weight_linear", self.mode == "linear")):
+            if (name in state) != present:
+                raise ValueError(
+                    "reference checkpoint template-weight mode does not match "
+                    f"this config (mode={self.mode!r}, checkpoint "
+                    f"keys={sorted(state)})"
+                )
+        bufs = extra.get("gp_buffers")
+        if bufs is not None:
+            k_ck, m_ck, _ = np.shape(bufs["templates"])
+            d_ck = int(np.shape(bufs["templates_red"])[-1])
+            st = self.gp_static
+            if (k_ck, m_ck, d_ck) != (st.num_classes, st.num_templates, st.red_dim):
+                raise ValueError(
+                    f"reference GP checkpoint shape (K={k_ck}, M={m_ck}, "
+                    f"d={d_ck}) does not match this config (K={st.num_classes}, "
+                    f"M={st.num_templates}, d={st.red_dim})"
+                )
+            kernel_key_sets = {
+                "rbf": {"raw_lengthscale", "raw_outputscale"},
+                "matern": {"raw_lengthscale"},
+                "linear": {"raw_variance"},
+            }
+            # the key sets must be equal: an rbf checkpoint's keys include
+            # matern's, and a missing-key check alone would evaluate rbf
+            # parameters under the Matern kernel
+            present = set(state["gp"]) & set().union(*kernel_key_sets.values())
+            if present != kernel_key_sets[st.kernel_type]:
+                raise ValueError(
+                    "reference GP checkpoint kernel does not match this "
+                    f"config's {st.kernel_type!r} kernel (checkpoint kernel "
+                    f"params {sorted(present)}, expected "
+                    f"{sorted(kernel_key_sets[st.kernel_type])})"
+                )
+            self.gp_buffers = self._adopt_state(bufs)
+        return state
 
     def extra_checkpoint_state(self):
         # GP buffers (PCA basis + reduced templates) derive from the TRAINING
@@ -312,10 +365,15 @@ class Trainer(BaseTrainer):
                 print("[GP] One-step initialization applied to GP weights.")
 
         self.before_train()
-        for self.epoch in range(self.start_epoch, self.max_epoch):
-            self.before_epoch()
-            self.run_epoch()
-            self.after_epoch()
+        # the same trace and phase as BaseTrainer.train
+        with maybe_trace("train", device=dev), phase_timer("train_epochs", device=dev):
+            for self.epoch in range(self.start_epoch, self.max_epoch):
+                self.before_epoch()
+                self.run_epoch()
+                self.after_epoch()
+
+        if getattr(self.config.adapter, "finetune_on_test", False):
+            self._finetune_on_test()
 
         self.after_train()
         self._print_weight_stats()
@@ -392,6 +450,11 @@ class Trainer(BaseTrainer):
                 )
                 if self.mode == "gp":
                     self._print_gp_diagnostics()
+            if self._writer is not None:  # TensorBoard accepts the per-step sync
+                n_iter = self.epoch * self.num_batches + self.batch_idx
+                self.write_scalar("train/loss", float(loss), n_iter)
+                self.write_scalar("train/lr", self.opt.current_lrs.get("base", 0.0),
+                                  n_iter)
             end = time.time()
 
         self.opt.set_epoch(self.epoch + 1)
@@ -437,3 +500,64 @@ class Trainer(BaseTrainer):
                 mean_vals = w.cpu().numpy().mean(axis=0)
                 print("Weights: mean = [{}]".format(
                     ", ".join(f"{v:.4f}" for v in mean_vals)))
+
+    # ------------------------------------------------------------------
+    def _finetune_on_test(self):
+        """Sanity ceiling check: optimize only the weighting head on the test
+        set (ref: trainers/adapter.py:968-1065), as the JAX package runs it.
+        Not for regular training.
+
+        Mini-batches of ``gp_test_batch_size`` (else the test batch size)
+        over the test features shuffled once, the ragged tail kept; 100
+        epochs with the configured lr schedule set per epoch; a test
+        accuracy line per epoch. In 'uniform' mode the reference promotes
+        the stored template-weights tensor to a trainable parameter that
+        the forward then reads as logits (ref: adapter.py:978-981 and
+        215-222): here the 'logits' head, initialized with the weight
+        values (the softmax of a constant row is uniform, so the start is
+        unchanged). The visual projection stays frozen."""
+        if self.mode == "uniform":
+            tw = getattr(self, "_baseline_template_weights", None)
+            if tw is None:
+                k, m = self.text_embeddings.shape[:2]
+                tw = torch.full((k, m), 1.0 / max(m, 1), device=self.device)
+            self.params["template_logits"] = tw.detach().clone().requires_grad_(True)
+            self.mode = "logits"
+        self.params["visual_proj"].requires_grad_(False)
+        leaves = [leaf for name in self.params if name != "visual_proj"
+                  for leaf in self._leaves(name)]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        opt = MultiGroupOptimizer(self.config.optim, {"base": float(self.config.optim.lr)},
+                                  {"base": leaves})
+        n = int(self.features_test.shape[0])
+        # one shuffle per run from the process-global numpy stream
+        # (ref: adapter.py:1020-1022)
+        idx = np.random.rand(n).argsort(axis=0)
+        idx_dev = torch.from_numpy(idx).to(self.device)
+        features_all = self._test_features_dev()[idx_dev]
+        labels_np = self.labels_test[idx]
+        labels_all = torch.from_numpy(labels_np.astype(np.int64)).to(self.device)
+        default_bs = int(self.config.dataloader.batch_size_test)
+        bs = max(1, int(getattr(self.config.adapter, "gp_test_batch_size", 0)
+                        or default_bs))
+        num_batches = int(np.ceil(n / float(bs)))
+        num_epochs = 100
+        print("[SANITY] Template weights fine-tuning on TEST set: "
+              f"epochs={num_epochs} bs={bs} lr={float(self.config.optim.lr)}")
+        for ep in range(num_epochs):
+            opt.set_epoch(ep)
+            running = torch.zeros((), device=self.device)
+            for b in range(num_batches):
+                b0, b1 = b * bs, min((b + 1) * bs, n)
+                opt.zero_grad()
+                loss, _ = self._loss(features_all[b0:b1], labels_all[b0:b1],
+                                     self.keys.next(), l2_reg=False)
+                loss.backward()
+                opt.step()
+                running = running + loss.detach() * (b1 - b0)
+            logits = self._eval_logits(features_all, self.keys.next()).cpu().numpy()
+            acc = compute_accuracy(logits, labels_np)[0]
+            print(f"[SANITY] Template weights test fine-tune epoch "
+                  f"{ep + 1}/{num_epochs}: loss={float(running) / n:.4f} "
+                  f"acc_test={acc:.4f}")

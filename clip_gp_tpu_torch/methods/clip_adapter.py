@@ -131,7 +131,7 @@ class Trainer(BaseTrainer):
         dev = self.device
 
         self.labels_test, self.features_test = self.encode_images_batched(
-            self.test_loader)
+            self.test_loader, cacheable=True)
         zs_logits = self.predict_logits(
             torch.from_numpy(self.features_test).to(dev)).cpu().numpy()
         self.compute_zero_shot_block(zs_logits, self.labels_test)

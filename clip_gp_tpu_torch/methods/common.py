@@ -10,6 +10,7 @@ machinery has no counterpart here.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -18,7 +19,11 @@ import torch.nn.functional as F
 
 from clip_gp_tpu_torch.models.tokenizer import tokenize
 
-EXTRACT_DEVICE_BATCH = 512
+
+def extract_device_batch() -> int:
+    """Images per device batch of an extraction:
+    ``CLIP_GP_TPU_TORCH_EXTRACT_DEVICE_BATCH``, default 512."""
+    return max(1, int(os.environ.get("CLIP_GP_TPU_TORCH_EXTRACT_DEVICE_BATCH", "512")))
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -185,11 +190,13 @@ def extract_with(encode_fn, loader) -> Tuple[np.ndarray, np.ndarray]:
     float32, labels [N]).
 
     Loader batches are grouped into device batches of at least
-    ``EXTRACT_DEVICE_BATCH`` images: encoding is per image, so the grouping
-    cannot change results, and larger launches keep the GPU fed. The loader batch size still sets the host decode granularity.
+    ``extract_device_batch()`` images: encoding is per image, so the
+    grouping cannot change results, and larger launches keep the GPU fed.
+    The loader batch size still sets the host decode granularity.
     ``encode_fn`` takes uint8 NHWC numpy images and returns a tensor."""
     feats, labels = [], []
     buf: list = []
+    device_batch = extract_device_batch()
 
     def flush():
         imgs = buf[0] if len(buf) == 1 else np.concatenate(buf)
@@ -199,7 +206,7 @@ def extract_with(encode_fn, loader) -> Tuple[np.ndarray, np.ndarray]:
     for batch in loader:
         buf.append(batch["img"])
         labels.append(batch["label"])
-        if sum(b.shape[0] for b in buf) >= EXTRACT_DEVICE_BATCH:
+        if sum(b.shape[0] for b in buf) >= device_batch:
             flush()
     if buf:
         flush()

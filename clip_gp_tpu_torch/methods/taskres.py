@@ -114,7 +114,7 @@ class Trainer(BaseTrainer):
         dev = self.device
 
         self.labels_test, self.features_test = self.encode_images_batched(
-            self.test_loader)
+            self.test_loader, cacheable=True)
         # the zero-shot baseline with the standard zero-shot classifier
         zs_w = common.zero_shot_classifier(self.text_embeddings)
         with torch.no_grad():

@@ -8,9 +8,10 @@ semantics (ref: utils/optimization.py) as the JAX package states them
   ``after_epoch``): the schedule is a function of the epoch index and
   ``set_epoch`` writes the lr into each param group;
 - parameter groups with their own base lr (base vs GP); a group whose lr is
-  None is frozen and never stepped.
-
-Not ported yet: "muon" (MuonWithAuxAdam).
+  None is frozen and never stepped;
+- "muon" is ``MuonWithAuxAdam``: ≥2-D parameters orthogonalize their
+  momentum by a bf16 Newton–Schulz iteration, the others take Adam, the
+  JAX package's ``_muon_with_aux_adam`` exactly.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 
@@ -125,8 +127,99 @@ def build_torch_optimizer(config, groups: List[dict]) -> torch.optim.Optimizer:
         return torch.optim.AdamW(groups, lr=groups[0]["lr"], betas=betas,
                                  eps=eps, weight_decay=wd, foreach=False)
     if name == "muon":
-        raise NotImplementedError("the muon optimizer is not ported yet")
+        return MuonWithAuxAdam(groups, lr=groups[0]["lr"], weight_decay=wd,
+                               betas=betas)
     raise ValueError(f"Unsupported optimizer: {name}")
+
+
+def ns5_keller(x: torch.Tensor, ns_steps: int = 5) -> torch.Tensor:
+    """Newton–Schulz-5 orthogonalization with the public Muon package's
+    numerics (github.com/KellerJordan/Muon ``zeropower_via_newtonschulz5``),
+    as the JAX package's ``_ns5_keller``: the iteration in bfloat16, a
+    transpose when rows > cols, Frobenius normalization with eps 1e-7, over
+    the last two dims. Returns bf16; the caller casts."""
+    a, b, c = 3.4445, -4.7750, 2.0315
+    x = x.to(torch.bfloat16)
+    transposed = x.shape[-2] > x.shape[-1]
+    if transposed:
+        x = x.transpose(-1, -2)
+    x = x / (torch.linalg.norm(x, dim=(-2, -1), keepdim=True) + 1e-7)
+    for _ in range(ns_steps):
+        xxt = x @ x.transpose(-1, -2)
+        poly = b * xxt + c * (xxt @ xxt)
+        x = a * x + poly @ x
+    if transposed:
+        x = x.transpose(-1, -2)
+    return x
+
+
+class MuonWithAuxAdam(torch.optim.Optimizer):
+    """The reference's executed MuonWithAuxAdam (ref:
+    utils/optimization.py:105-141 and the public Muon package it imports),
+    as the JAX package's ``_muon_with_aux_adam`` states it:
+
+    - ≥2-D parameters: momentum ``m ← βm + (1−β)g`` with β = 0.95 and no
+      bias correction, the nesterov blend ``u = (1−β)g + βm``, bf16 NS-5
+      (a 4-D parameter flattened to [rows, −1]), scaled by
+      ``max(1, rows/cols)**0.5`` of the parameter's last two dims;
+    - <2-D parameters: Adam with bias correction and eps 1e-8 added after
+      the square root;
+    - both: decoupled weight decay, ``p ← p − lr·(update + wd·p)``.
+
+    The aux lr and weight decay are the Muon ones: the reference's aux knobs
+    are unreachable in its config system. Every step is computed out of
+    place in the JAX package's order, so fp32 rounding matches it."""
+
+    # the Muon momentum and the Adam eps: constants in the reference's
+    # executed config
+    MOMENTUM = 0.95
+    EPS = 1e-8
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, betas=(0.9, 0.999)):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, betas=tuple(betas)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            b1, b2 = group["betas"]
+            beta, eps = self.MOMENTUM, self.EPS
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p)
+                    if p.ndim < 2:
+                        state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                m = state["exp_avg"]
+                if p.ndim >= 2:
+                    m_new = beta * m + (1.0 - beta) * g
+                    u = (1.0 - beta) * g + beta * m_new
+                    flat = u.reshape(u.shape[0], -1) if u.ndim == 4 else u
+                    ortho = ns5_keller(flat).reshape(g.shape).to(g.dtype)
+                    factor = max(1.0, g.shape[-2] / g.shape[-1]) ** 0.5
+                    update = ortho * factor + wd * p
+                else:
+                    v = state["exp_avg_sq"]
+                    m_new = b1 * m + (1.0 - b1) * g
+                    v_new = b2 * v + (1.0 - b2) * torch.square(g)
+                    # bias corrections in float32, as the JAX package's
+                    t = np.float32(state["step"])
+                    m_hat = m_new / float(np.float32(1.0) - np.float32(b1) ** t)
+                    v_hat = v_new / float(np.float32(1.0) - np.float32(b2) ** t)
+                    update = m_hat / (torch.sqrt(v_hat) + eps) + wd * p
+                    v.copy_(v_new)
+                m.copy_(m_new)
+                p.add_(update * (-lr))
+        return loss
 
 
 class MultiGroupOptimizer:

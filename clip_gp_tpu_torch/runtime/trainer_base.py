@@ -15,13 +15,21 @@ per-class state to the evaluated classes (by class key, else by unique class
 name), and serves ``--resume``, ``--eval-only``, ``FINAL_MODEL best_val`` and
 the predict entry. With ``MODEL.INT8_INFERENCE`` the image encodes run the
 int8 ViT tower (``models/quantized.py``, K5/K6), its weights quantized once
-per loaded tower.
+per loaded tower. Where a run directory holds no npz but a reference-format
+checkpoint (``model.pth.tar-*``), ``load_model`` converts it
+(``runtime/ref_checkpoint.py``) and the trainer adopts it
+(``adopt_reference_state``).
 
-Not ported yet: reference-format checkpoints (``model.pth.tar-*``, whose
-adoption needs ``runtime/ref_checkpoint.py``; ``load_model`` raises on one),
-the disk feature cache, sharded extraction, and TensorBoard
-(``TRAIN.ENABLE_TENSORBOARD`` raises ``NotImplementedError``; the heads'
-``write_scalar`` calls find no writer and do nothing).
+The val and test extractions go through the feature cache
+(``runtime/feature_cache.py``: an in-process memo, and a disk cache under
+``CLIP_GP_TPU_TORCH_FEATURE_CACHE``); the train split never does. Each
+extraction is timed as the ``feature_extraction`` phase and the epoch loop
+as ``train_epochs`` (``runtime/profiling.py``), under a ``torch.profiler``
+trace when ``CLIP_GP_TPU_TORCH_PROFILE_DIR`` is set. With
+``TRAIN.ENABLE_TENSORBOARD`` the scalars go to ``<output_dir>/tensorboard``
+through tensorboardX, or, without tensorboardX, nowhere (the JAX package's
+behavior: a printed line, and no result changes). Sharded extraction
+belongs to the trial-batched sweep and is not here.
 """
 
 from __future__ import annotations
@@ -29,7 +37,6 @@ from __future__ import annotations
 import datetime
 import json
 import os
-import re
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -50,32 +57,17 @@ from clip_gp_tpu_torch.ops.metrics import (
     compute_ece_with_bins,
     compute_macro_f1,
 )
-from clip_gp_tpu_torch.runtime.checkpoint import _flatten, _unflatten
+from clip_gp_tpu_torch.runtime import feature_cache
+from clip_gp_tpu_torch.runtime.checkpoint import _flatten, _unflatten, find_run_checkpoint
+from clip_gp_tpu_torch.runtime.profiling import maybe_trace, phase_timer
 
 CKPT_PREFIX = "model.ckpt-"
-# the reference's own checkpoint names (ref: utils/trainer.py:376-399)
-REF_CKPT_PREFIX = "model.pth.tar-"
-
-
-def _find_checkpoint(model_dir: str, epoch: Optional[int], prefix: str,
-                     suffix: str, best: str) -> Optional[Path]:
-    adapter_dir = Path(model_dir) / "adapter"
-    if epoch is not None:
-        path = adapter_dir / f"{prefix}{epoch}{suffix}"
-        return path if path.exists() else None
-    if (adapter_dir / best).exists():
-        return adapter_dir / best
-    cands = sorted(
-        adapter_dir.glob(f"{prefix}*{suffix}"),
-        key=lambda p: int(re.search(r"(\d+)", p.name[len(prefix):]).group(1)),
-    )
-    return cands[-1] if cands else None
 
 
 def resolve_checkpoint_path(model_dir: str, epoch: Optional[int] = None):
     """<out>/adapter checkpoint discovery: explicit epoch, else model-best,
     else highest-numbered (ref: utils/trainer.py:376-399). None if absent."""
-    return _find_checkpoint(model_dir, epoch, CKPT_PREFIX, ".npz", "model-best.npz")
+    return find_run_checkpoint(model_dir, epoch, CKPT_PREFIX, ".npz", "model-best.npz")
 
 
 def read_checkpoint_classnames(path) -> Optional[list]:
@@ -108,8 +100,6 @@ def infer_method_name(config) -> str:
 
 class BaseTrainer:
     def __init__(self, config, dataset_manager, device=None):
-        if getattr(config.train, "enable_tensorboard", False):
-            raise NotImplementedError("TRAIN.ENABLE_TENSORBOARD is not ported yet")
         self.config = config
         self.dm = dataset_manager
         self.device = resolve_device(device)
@@ -129,7 +119,7 @@ class BaseTrainer:
         self.zero_shot_metrics: Optional[Dict] = None
         self._best_val_acc = float("-inf")
         self._val_feature_memo: Optional[Tuple] = None
-        # the TensorBoard writer: never set while TensorBoard is unported
+        # the TensorBoard writer, opened by before_train
         self._writer = None
         # set by build_model
         self.clip_arch = None
@@ -204,11 +194,37 @@ class BaseTrainer:
             }
         return self._encode_plan_cached
 
-    def encode_images_batched(self, loader) -> Tuple[np.ndarray, np.ndarray]:
+    def encode_images_batched(self, loader, cacheable: bool = False
+                              ) -> Tuple[np.ndarray, np.ndarray]:
         """One pass of the frozen image tower over a loader → (labels [N],
         features [N,D]): the fp32 tower, or with ``MODEL.INT8_INFERENCE`` the
         int8 tower in bf16 (every block K5 then K6). The training math is the
-        same either way: every method trains on the extracted features."""
+        same either way: every method trains on the extracted features.
+
+        ``cacheable=True`` (the deterministic val and test splits only)
+        consults the feature cache first: a hit runs no tower."""
+        if not cacheable:
+            return self._encode_batched_uncached(loader, None)
+        key = feature_cache.cache_key(
+            self.config, loader.data_source, getattr(self, "weights_tag", "default"),
+            device_type=self.device.type, int8=self._encode_plan()["int8"],
+        )
+        # a second trainer missing the memo for a split that another thread
+        # is encoding waits for that encode
+        with feature_cache.inflight_lock(key):
+            hit = feature_cache.memo_get(key)
+            if hit is not None:
+                print(f"[feature-cache] memo hit: {key}")
+                return hit
+            hit = feature_cache.load(key)
+            if hit is not None:
+                print(f"[feature-cache] hit: {key}")
+                feature_cache.memo_put(key, *hit)
+                return hit
+            return self._encode_batched_uncached(loader, key)
+
+    def _encode_batched_uncached(self, loader, key: Optional[str]
+                                 ) -> Tuple[np.ndarray, np.ndarray]:
         # imported here: importing the methods package registers the trainers,
         # which import this module
         from clip_gp_tpu_torch.methods.common import extract_with
@@ -224,7 +240,11 @@ class BaseTrainer:
                                                      self.clip_arch, x)
                 return self.clip_model.encode_image(x)
 
-        feats, labels = extract_with(encode, loader)
+        with phase_timer("feature_extraction", device=self.device):
+            feats, labels = extract_with(encode, loader)
+        if key is not None:
+            feature_cache.memo_put(key, labels, feats)
+            feature_cache.store(key, labels, feats)
         return labels, feats
 
     def extract_features(self, partition: str = "train"):
@@ -238,7 +258,8 @@ class BaseTrainer:
             "val": self.val_loader,
             "test": self.test_loader,
         }[partition]
-        labels, feats = self.encode_images_batched(loader)
+        labels, feats = self.encode_images_batched(
+            loader, cacheable=partition in ("val", "test"))
         with torch.no_grad():
             logits = self.predict_logits(
                 torch.from_numpy(feats).to(self.device)
@@ -251,12 +272,33 @@ class BaseTrainer:
     def before_train(self):
         if self.config.resume:
             self.start_epoch = self.load_model(self.config.resume)
+        if getattr(self.config.train, "enable_tensorboard", False):
+            writer_dir = Path(self.output_dir) / "tensorboard"
+            writer_dir.mkdir(parents=True, exist_ok=True)
+            self.init_writer(str(writer_dir))
         self.time_start = time.time()
+
+    def init_writer(self, log_dir: str) -> None:
+        """TensorBoard scalars through tensorboardX (ref:
+        utils/trainer.py:331-345)."""
+        if self._writer is None:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                print("tensorboardX unavailable; scalar logging disabled")
+                return
+            print(f"Initialize tensorboard (log_dir={log_dir})")
+            self._writer = SummaryWriter(log_dir=log_dir)
 
     def write_scalar(self, tag: str, value, global_step=None) -> None:
         """A TensorBoard scalar; nothing without a writer."""
         if self._writer is not None and isinstance(value, (int, float)):
             self._writer.add_scalar(tag, value, global_step)
+
+    def close_writer(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
 
     def after_train(self):
         print("Finish training")
@@ -270,6 +312,7 @@ class BaseTrainer:
         if self.time_start is not None:
             elapsed = str(datetime.timedelta(seconds=round(time.time() - self.time_start)))
             print(f"Elapsed: {elapsed}")
+        self.close_writer()
 
     def before_epoch(self):
         pass
@@ -291,7 +334,8 @@ class BaseTrainer:
             and len(self.dm.dataset.val or []) > 0
         ):
             if self._val_feature_memo is None:
-                labels, feats = self.encode_images_batched(self.val_loader)
+                labels, feats = self.encode_images_batched(self.val_loader,
+                                                           cacheable=True)
                 self._val_feature_memo = (labels, torch.from_numpy(feats).to(self.device))
             labels, feats = self._val_feature_memo
             with torch.no_grad():
@@ -303,13 +347,15 @@ class BaseTrainer:
                 print(f"New best val accuracy: {acc:.2f} (epoch {self.epoch + 1})")
 
     def train(self):
-        self.build_model()
-        self.before_train()
-        for self.epoch in range(self.start_epoch, self.max_epoch):
-            self.before_epoch()
-            self.run_epoch()
-            self.after_epoch()
-        self.after_train()
+        with maybe_trace("train", device=self.device):
+            self.build_model()
+            self.before_train()
+            with phase_timer("train_epochs", device=self.device):
+                for self.epoch in range(self.start_epoch, self.max_epoch):
+                    self.before_epoch()
+                    self.run_epoch()
+                    self.after_epoch()
+            self.after_train()
 
     def run_epoch(self):
         raise NotImplementedError
@@ -337,7 +383,8 @@ class BaseTrainer:
 
     def eval_logits_labels(self, split: str = "test"):
         labels, feats = self.encode_images_batched(
-            self.test_loader if split == "test" else self.val_loader
+            self.test_loader if split == "test" else self.val_loader,
+            cacheable=True,
         )
         with torch.no_grad():
             logits = self.predict_logits(
@@ -374,6 +421,8 @@ class BaseTrainer:
         print(f"* ECE: {ece:.2f}%")
         print(f"* AECE: {aece:.2f}%")
         self.write_run_summary_json(results, start_time=self.time_start or time.time())
+        for key, value in results.items():
+            self.write_scalar(f"{split}/{key}", value, self.epoch)
         return accuracy
 
     def write_run_summary_json(self, metrics: Dict, start_time: float) -> None:
@@ -446,18 +495,34 @@ class BaseTrainer:
             "classes and this trainer has no cross-dataset remap"
         )
 
+    def adopt_reference_state(self, state: Dict, extra: Dict) -> Dict:
+        """Check and adopt a converted reference checkpoint
+        (``runtime/ref_checkpoint.py``) before ``load_trainable_state``. The
+        default takes class-agnostic state as it is; a trainer whose
+        converted state carries companion buffers (the Adapter's GP)
+        overrides this."""
+        if extra:
+            raise ValueError(
+                f"{type(self).__name__} cannot adopt reference extra state "
+                f"{sorted(extra)}"
+            )
+        return state
+
     def load_model(self, model_dir: str, epoch: Optional[int] = None) -> int:
-        """Load the run's npz checkpoint into the trainer; returns its epoch,
-        or 0 when ``<model_dir>/adapter`` holds none."""
+        """Load the run's npz checkpoint into the trainer, else its
+        reference-format checkpoint; returns its epoch, or 0 when
+        ``<model_dir>/adapter`` holds neither."""
         path = resolve_checkpoint_path(model_dir, epoch)
         if path is None:
-            ref_path = _find_checkpoint(model_dir, epoch, REF_CKPT_PREFIX, "",
-                                        "model-best.pth.tar")
+            from clip_gp_tpu_torch.runtime import ref_checkpoint
+
+            ref_path = ref_checkpoint.resolve_reference_checkpoint_path(model_dir, epoch)
             if ref_path is not None:
-                raise NotImplementedError(
-                    f"{ref_path}: adopting a reference-format checkpoint "
-                    "(runtime/ref_checkpoint.py) is not ported yet"
-                )
+                print(f"Loading reference checkpoint from {ref_path}")
+                state, extra, ep = ref_checkpoint.convert_reference_checkpoint(
+                    ref_path, getattr(self.config, "trainer_name", ""))
+                self.load_trainable_state(self.adopt_reference_state(state, extra))
+                return ep
             print(f"No checkpoint found under {Path(model_dir) / 'adapter'}")
             return 0
         print(f"Loading checkpoint from {path}")

@@ -189,6 +189,8 @@ def test_epoch_optimizer_lr_follows_schedule():
 
 
 def test_muon_is_refused_until_ported():
+    # Muon is ported (tests/test_torch_muon.py holds it against JAX): the
+    # name now builds MuonWithAuxAdam instead of raising
     _, tc = _configs(name="muon")
-    with pytest.raises(NotImplementedError, match="muon"):
-        topt.MultiGroupOptimizer(tc, {"base": 0.1}, {"base": [torch.zeros(2, 2)]})
+    opt = topt.MultiGroupOptimizer(tc, {"base": 0.1}, {"base": [torch.zeros(2, 2)]})
+    assert isinstance(opt.opt, topt.MuonWithAuxAdam)

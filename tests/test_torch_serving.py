@@ -27,6 +27,7 @@ import importlib
 import json
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -350,9 +351,15 @@ def test_checkpoint_discovery_and_reference_format(tmp_path):
     (ref_dir / "adapter").mkdir(parents=True)
     trainer = port_tb.BaseTrainer.__new__(port_tb.BaseTrainer)
     assert trainer.load_model(str(ref_dir)) == 0
-    (ref_dir / "adapter" / "model.pth.tar-5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="model.pth.tar-5"):
-        trainer.load_model(str(ref_dir))
+    # a reference-format checkpoint is converted and adopted
+    # (tests/test_torch_ref_checkpoint.py holds every converter against JAX)
+    torch.save({"state_dict": {"prompt_learner.ctx": torch.ones(2, 4)}, "epoch": 5},
+               ref_dir / "adapter" / "model.pth.tar-5")
+    trainer.config = SimpleNamespace(trainer_name="Adapter-CoOp")
+    loaded = []
+    trainer.load_trainable_state = loaded.append
+    assert trainer.load_model(str(ref_dir)) == 5
+    np.testing.assert_array_equal(loaded[0]["ctx"], np.ones((2, 4), np.float32))
 
 
 def test_unflatten_matches_jax():
