@@ -18,8 +18,9 @@ exits non-zero before printing any result. Phases, each raising on failure:
    trimmed text tower (N=24, D=512, H=8, causal) at B=100 (a CoOp step on
    100 classes) and B=256 (a CoCoOp chunk at PROMPT_BUDGET), fp32, and B=256
    with a bf16 x — each asked for dx only (what the prompt learners launch)
-   and for all seven gradients; K3 also at B=100 on the untrimmed text
-   tower (N=77, fp32); K5 and K6 (the int8 blocks of the serving
+   and for all seven gradients, and at B=400 (a trial-batched CoOp step
+   of phase 11: 4 trials x 100 classes); K3 also at B=100 on the untrimmed
+   text tower (N=77, fp32); K5 and K6 (the int8 blocks of the serving
    tower) at ViT-B/16 B=32 and B=512 in bf16 (the serving dtype) and B=32
    in fp32; K7 (standalone attention on [B, H, N, Dh]) at ViT-B/16's heads
    (B=32 and B=512, H=12, N=197, Dh=64) and the text tower's (B=256, H=8,
@@ -128,10 +129,28 @@ exits non-zero before printing any result. Phases, each raising on failure:
    ImageNet-A (OOD_SUBSET classes, remapped by wnid) (paths
    ``single_trial``, ``cached``, ``finetune_on_test``, ``eval_npz``,
    ``ref_ckpt``, ``ood_train``, ``ood``);
-11. output: one ``{"kernels": [...]}`` line, then as the last line
+11. sweep: the sweep runner (``clip_gp_tpu_torch.parallel.sweep.main``,
+   ``--backend vmap --strict-vmap``) on ViT-B/16 over Synthetic PNG trees
+   from experiment YAMLs built on the repo's ``configs/trainers``: the GP
+   trainer's config over seeds 1-4 x a two-value ``OPTIM.LR`` grid (one
+   group, T=8; K1/K2 exactly once per group for the text, union and test
+   encodes), ``Adapter-CoOp`` on 100 classes, 1 shot (T=4, 2 epochs; K1-K4
+   exactly once per block per step at T x K prompts, every trial's context
+   moved) and Tip-Adapter-F (T=4; the val split and each trial's (beta,
+   alpha) on the grid), each beside its first trial run in-process; the
+   Adapter without the GP (T=8) against its trial (seed 1, the first lr)
+   run by ``--backend inprocess`` and by ``--backend subprocess --devices
+   0`` (top-1 equal, metrics within SWEEP_METRIC_TOL); then the aggregator
+   over the output tree (``--no-plots`` without matplotlib). ``[sweep]``
+   lines give each group's seconds, seconds per trial beside the in-process
+   trial's, the ``vmap.*`` phase report and the card (paths
+   ``sweep_adapter_gp``, ``sweep_coop``, ``sweep_tip_f``,
+   ``sweep_adapter``, ``sweep_inprocess`` and the ``*_trial`` runs; the
+   child process's launches are counted in the child);
+12. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-10 sets the launch counts to 0 just before each run it
+Each of phases 4-11 sets the launch counts to 0 just before each run it
 drives and reads them just after; a kernel's ``launches`` in the JSON line is
 the sum over those runs, and ``launches_by_path`` gives each.
 """
@@ -216,13 +235,15 @@ TOLERANCES = {"fp32": (1e-4, 1e-4), "bf16": (2.0**-6, 2.0**-7)}
 # (name, batch, tokens, width, heads, x dtype, kernels) of the backward
 # cells: the trimmed text tower of the prompt learners (n_ctx 16 + a class
 # name covers 24 positions), a CoOp step on 100 classes and a CoCoOp chunk
-# of 256 prompts; and K3 at a CoOp step on the untrimmed tower
-# (CLIP_GP_TPU_TORCH_TRIM_PROMPTS=0: 77 tokens)
+# of 256 prompts; K3 at a CoOp step on the untrimmed tower
+# (CLIP_GP_TPU_TORCH_TRIM_PROMPTS=0: 77 tokens); and a trial-batched CoOp
+# step of phase 11 (T x K = 4 x 100 prompts)
 BWD_SHAPES = [
     ("coop", 100, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
     ("cocoop", 256, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
     ("cocoop", 256, 24, 512, 8, "bf16", ("ln_attn_bwd", "ln_mlp_bwd")),
     ("coop-untrimmed", 100, 77, 512, 8, "fp32", ("ln_attn_bwd",)),
+    ("coop-sweep", 400, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
 ]
 # K3/K4 kernel vs plain: both recompute the block in fp32 and sum up to
 # T = B·N rows of fp32 products into each weight gradient, in other orders;
@@ -2884,6 +2905,320 @@ def phase_single_trial(backbone="ViT-B/16"):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+# phase 11's groups: the seeds (T = 4 per group, 8 with the lr grid), the GP
+# trainer's OPTIM.LR grid, the classes of the CoOp tree and its shots
+SWEEP_SEEDS = [1, 2, 3, 4]
+SWEEP_LRS = [1e-3, 1e-2]
+SWEEP_COOP_CLASSES = 100
+# a trial run in-process or in a child process against the same trial of a
+# trial-batched group: top-1 equal, the other metrics within this
+SWEEP_METRIC_TOL = 1e-3
+
+
+def _deep_update(base, over):
+    for key, value in over.items():
+        if isinstance(value, dict) and isinstance(base.get(key), dict):
+            _deep_update(base[key], value)
+        else:
+            base[key] = value
+    return base
+
+
+def _experiment_yaml(path, trainer_yaml, root, out_root, name, backbone, seeds,
+                     shots, grid, **trainer):
+    """An experiment YAML on the repo's ``configs/trainers/<trainer_yaml>``
+    (its trainer block as it is, over ``default.yaml``), cut to the smoke:
+    the Synthetic tree under ``root``, ``backbone`` at its resolution with no
+    augmentation, batches of 32, and ``trainer``'s overrides (YAML
+    sections)."""
+    import yaml
+
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "configs", "trainers", trainer_yaml)) as f:
+        spec = yaml.safe_load(f)
+    res = ARCHITECTURES[backbone].image_resolution
+    base = spec.get("BASE_CONFIG")
+    if base:
+        spec["BASE_CONFIG"] = os.path.join(repo, base)
+    _deep_update(spec, {
+        "name": name, "root": str(root), "datasets": ["synthetic"],
+        "seeds": list(seeds), "shots": list(shots), "grid": grid,
+        "output_root": str(out_root),
+        "dataset_config": os.path.join(repo, "configs", "datasets", "synthetic.yaml"),
+        "MODEL": {"BACKBONE": {"NAME": backbone}},
+        "INPUT": {"SIZE": f"({res}, {res})", "TRANSFORMS": ["normalize"]},
+        "DATALOADER": {"NUM_WORKERS": 4, "TRAIN_X": {"BATCH_SIZE": 32},
+                       "TEST": {"BATCH_SIZE": 32}},
+        "TRAIN": {"PRINT_FREQ": 100},
+    })
+    _deep_update(spec, trainer)
+    with open(path, "w") as f:
+        yaml.safe_dump(spec, f)
+    return str(path)
+
+
+class _RunnerProbe:
+    """Records what each trial-batched group of a sweep did: its runner, the
+    size of every union it encoded (train unions per epoch and the val
+    union) and its initial state."""
+
+    def __enter__(self):
+        from clip_gp_tpu_torch.parallel import trial_vmap as tv
+
+        probe = self
+        self.runners, self.unions, self.initial = [], [], []
+        run, encode, init = (tv.VmappedTrials.run, tv.VmappedTrials._encode_union,
+                             tv.VmappedTrials._initial_params)
+
+        def run_(runner, *args, **kwargs):
+            probe.runners.append(runner)
+            return run(runner, *args, **kwargs)
+
+        def encode_(runner, base, items, *args, **kwargs):
+            probe.unions.append(len(items))
+            return encode(runner, base, items, *args, **kwargs)
+
+        def init_(runner, spec):
+            state = init(runner, spec)
+            probe.initial.append(tv.tree_map(lambda v: v.detach().clone(), state))
+            return state
+
+        self._patches = [mock.patch.object(tv.VmappedTrials, name, fn) for name, fn in
+                         (("run", run_), ("_encode_union", encode_),
+                          ("_initial_params", init_))]
+        for patch in self._patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self._patches:
+            patch.stop()
+
+
+def _sweep_run(yaml_path, *args):
+    """``sweep.main`` on one experiment YAML with the launch counts and the
+    phase report set to 0 just before and read just after, ended by a CUDA
+    synchronize: (results, launches, phases, seconds). Every trial must have
+    run and written a finite metrics.json."""
+    import numpy as np
+    import torch
+
+    from clip_gp_tpu_torch.parallel import sweep
+    from clip_gp_tpu_torch.runtime import feature_cache, profiling
+
+    feature_cache.memo_clear()
+    profiling.reset_phases()
+    _reset_counts()
+    start = time.perf_counter()
+    results = sweep.main(["--config-file", yaml_path, *args])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = _counts()
+    for r in results:
+        if r["return_code"] != 0:
+            raise RuntimeError(f"sweep {yaml_path}: trial {r} failed")
+        with open(os.path.join(r["out_dir"], "metrics.json")) as f:
+            r["metrics"] = json.load(f)["metrics"]
+        for key in ("top1_acc", "ece", "aece"):
+            if not np.isfinite(r["metrics"][key]):
+                raise RuntimeError(f"{r['out_dir']}/metrics.json: {key} not finite")
+    return results, launches, profiling.phase_report(), seconds
+
+
+def _image_encodes(sizes, batch):
+    """Image-tower passes of extractions of ``sizes`` images each."""
+    return sum(math.ceil(n / batch) for n in sizes)
+
+
+def _vmapped(what, results, n_trials):
+    if len(results) != n_trials or any(r["backend"] != "vmap" for r in results):
+        raise RuntimeError(f"{what}: expected {n_trials} trials on the trial-batched "
+                           f"backend, got {[(r['seed'], r['backend']) for r in results]}")
+
+
+def _sweep_line(path, seconds, n_trials, trial_seconds, phases, launches,
+                trial_launches, smi, extra=""):
+    k1 = "fused_ln_attention_block"
+    log(f"[sweep] {path}: {n_trials} trials in {seconds:.2f} s, "
+        f"{seconds / n_trials:.3f} s per trial; the in-process trial "
+        f"{trial_seconds:.2f} s; K1 {launches[k1]} launches (T x the in-process "
+        f"trial's {trial_launches[k1]} = {n_trials * trial_launches[k1]}){extra}; "
+        f"phases {json.dumps(phases)}; {smi}")
+
+
+def phase_sweep(smi, backbone="ViT-B/16"):
+    """Phase 11: the sweep runner through ``parallel.sweep.main`` on the
+    trial-batched backend (``--backend vmap --strict-vmap``), each group
+    beside one of its trials run in-process: the GP trainer's seeds x lr
+    grid (T=8), CoOp on 100 classes (T=4), Tip-Adapter-F (T=4), the Adapter
+    without the GP (T=8) against one trial in-process and in a child
+    process, then the aggregator over the output tree. Returns the launches
+    of each run in this process."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from clip_gp_tpu_torch.data.datasets.synthetic import generate_synthetic_imagefolder
+    from clip_gp_tpu_torch.methods import common
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+    from clip_gp_tpu_torch.reporting import aggregate
+
+    os.environ["CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS"] = "1"
+    arch = ARCHITECTURES[backbone]
+    layers_v, layers_t = arch.vision_layers, arch.transformer_layers
+    batch = common.extract_device_batch()
+    k1, k2, k3, k4 = ("fused_ln_attention_block", "fused_ln_mlp", "ln_attn_bwd",
+                      "ln_mlp_bwd")
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        small, wide, out = (os.path.join(tmp, d) for d in ("small", "wide", "out"))
+        # the Synthetic dataset's own tree (4 classes), and one of 100
+        generate_synthetic_imagefolder(small)
+        generate_synthetic_imagefolder(wide, num_classes=SWEEP_COOP_CLASSES,
+                                       images_per_class=6)
+
+        def experiment(name, trainer_yaml, root, seeds, shots, grid, **trainer):
+            return _experiment_yaml(os.path.join(tmp, f"{name}.yaml"), trainer_yaml,
+                                    root, out, name, backbone, seeds, shots, grid,
+                                    **trainer)
+
+        def trial(name, trainer_yaml, root, shots, grid, **trainer):
+            """The group's first trial alone, in-process: its time and launches."""
+            path = experiment(name, trainer_yaml, root, SWEEP_SEEDS[:1], shots,
+                              {k: v[:1] for k, v in grid.items()}, **trainer)
+            results, launches, _, seconds = _sweep_run(path, "--backend", "inprocess")
+            return results[0], launches, seconds
+
+        # (a) the GP trainer's config, seeds x OPTIM.LR: one group of 8
+        gp = dict(TRAINER={"ADAPTER": {"CLIP_ADAPTER_EPOCHS": 20}})
+        grid = {"OPTIM.LR": SWEEP_LRS}
+        with _RunnerProbe() as probe:
+            results, launches, phases, seconds = _sweep_run(
+                experiment("sweep_adapter_gp", "gp.yaml", small, SWEEP_SEEDS, [4], grid,
+                           **gp), "--backend", "vmap", "--strict-vmap")
+        _vmapped("sweep_adapter_gp", results, 8)
+        runner = probe.runners[0]
+        want = (layers_v * (_image_encodes(probe.unions, batch)
+                            + _image_encodes([len(runner.labels_test)], batch))
+                + layers_t * math.ceil(runner.k * runner.m / 256))
+        _check_exact("sweep_adapter_gp", launches, {k1: want, k2: want})
+        _, trial_launches, trial_s = trial("sweep_adapter_gp_trial", "gp.yaml", small,
+                                           [4], grid, **gp)
+        _sweep_line("sweep_adapter_gp", seconds, 8, trial_s, phases, launches,
+                    trial_launches, smi, extra=f" (text, union of {probe.unions} "
+                    f"images and {len(runner.labels_test)} test images once per group)")
+        by_path["sweep_adapter_gp"] = launches
+        by_path["sweep_adapter_gp_trial"] = trial_launches
+
+        # (b) CoOp on 100 classes, 1 shot, 2 epochs: one group of 4
+        coop = dict(TRAINER={"ADAPTER": {"CLIP_ADAPTER_EPOCHS": 2}})
+        with _RunnerProbe() as probe:
+            results, launches, phases, seconds = _sweep_run(
+                experiment("sweep_coop", "coop.yaml", wide, SWEEP_SEEDS, [1], {}, **coop),
+                "--backend", "vmap", "--strict-vmap")
+        _vmapped("sweep_coop", results, 4)
+        runner = probe.runners[0]
+        steps = 2 * len(common.batch_slices(runner.k, 32))
+        moved = (runner.params["ctx"] - probe.initial[0]["ctx"]).abs().flatten(1).amax(1)
+        images = (_image_encodes(probe.unions, batch)
+                  + _image_encodes([len(runner.labels_test)], batch))
+        text = math.ceil(runner.k * runner.m / 256) + steps + 1
+        _check_exact("sweep_coop", launches, {
+            k1: layers_v * images + layers_t * text, k2: layers_v * images + layers_t * text,
+            k3: layers_t * steps, k4: layers_t * steps})
+        if not bool((moved > 0).all()):
+            raise RuntimeError(f"sweep_coop: a trial's context did not move: {moved}")
+        _, trial_launches, trial_s = trial("sweep_coop_trial", "coop.yaml", wide, [1], {},
+                                           **coop)
+        _sweep_line("sweep_coop", seconds, 4, trial_s, phases, launches, trial_launches,
+                    smi, extra=f"; {steps} steps, K3 {launches[k3]} and K4 {launches[k4]} "
+                    f"= {launches[k3] // steps} per step ({layers_t} blocks) at T x K = "
+                    f"{4 * runner.k} prompts, the in-process trial's K3 "
+                    f"{trial_launches[k3]}; every trial's context moved, by up to "
+                    f"{[round(v, 6) for v in moved.tolist()]}")
+        by_path["sweep_coop"] = launches
+        by_path["sweep_coop_trial"] = trial_launches
+
+        # (c) Tip-Adapter-F: the val split and each trial's (beta, alpha)
+        tip = dict(TRAINER={"ADAPTER": {"TIP_ADAPTER_EPOCHS": 10}})
+        with _RunnerProbe() as probe:
+            results, launches, phases, seconds = _sweep_run(
+                experiment("sweep_tip_f", "tipa_f.yaml", small, SWEEP_SEEDS, [4], {}, **tip),
+                "--backend", "vmap", "--strict-vmap")
+        _vmapped("sweep_tip_f", results, 4)
+        runner = probe.runners[0]
+        betas, alphas = runner.consts["beta"].tolist(), runner.consts["alpha"].tolist()
+        if not (set(betas) <= {1.0, 2.0, 5.0} and set(alphas) <= {1.0, 5.0, 10.0, 20.0, 50.0}):
+            raise RuntimeError(f"sweep_tip_f: (beta, alpha) off the grid: {betas} {alphas}")
+        images = (_image_encodes(probe.unions, batch)
+                  + _image_encodes([len(runner.labels_test)], batch))
+        want = layers_v * images + layers_t * math.ceil(runner.k * runner.m / 256)
+        _check_exact("sweep_tip_f", launches, {k1: want, k2: want})
+        _, trial_launches, trial_s = trial("sweep_tip_f_trial", "tipa_f.yaml", small, [4],
+                                           {}, **tip)
+        _sweep_line("sweep_tip_f", seconds, 4, trial_s, phases, launches, trial_launches,
+                    smi, extra=f"; val union {probe.unions[1]} images, per-trial "
+                    f"(beta, alpha) {list(zip(betas, alphas))}")
+        by_path["sweep_tip_f"] = launches
+        by_path["sweep_tip_f_trial"] = trial_launches
+
+        # (d) the Adapter without the GP, seeds x OPTIM.LR (T=8), against its
+        # trial (seed 1, the first lr) run in-process and in a child process
+        results, launches, phases, seconds = _sweep_run(
+            experiment("sweep_adapter", "baseline.yaml", small, SWEEP_SEEDS, [4], grid,
+                       **gp), "--backend", "vmap", "--strict-vmap")
+        _vmapped("sweep_adapter", results, 8)
+        sig = f"LR{SWEEP_LRS[0]}"
+        [ref] = [r for r in results if r["seed"] == SWEEP_SEEDS[0] and r["sig"] == sig]
+        by_path["sweep_adapter"] = launches
+        for path, args in (("sweep_inprocess", ("--backend", "inprocess")),
+                           ("sweep_subprocess", ("--backend", "subprocess",
+                                                 "--devices", "0", "--verbose"))):
+            one = experiment(path, "baseline.yaml", small, SWEEP_SEEDS[:1], [4],
+                             {"OPTIM.LR": SWEEP_LRS[:1]}, **gp)
+            [got], run_launches, _, run_s = _sweep_run(one, *args)
+            diff = {k: abs(got["metrics"][k] - ref["metrics"][k])
+                    for k in ("top1_acc", "ece", "aece", "macro_f1")}
+            log(f"[sweep] {path}: the trial (seed {SWEEP_SEEDS[0]}, {sig}) in "
+                f"{run_s:.2f} s against the same trial of the trial-batched group "
+                f"({seconds:.2f} s for 8, {seconds / 8:.3f} s per trial): |diff| {diff}; "
+                f"{smi}")
+            if diff["top1_acc"] != 0 or max(diff.values()) > SWEEP_METRIC_TOL:
+                raise RuntimeError(f"{path}: the trial differs from its trial-batched "
+                                   f"run: {diff}")
+            if path == "sweep_inprocess":
+                # a child's launches are counted in the child
+                by_path[path] = run_launches
+
+        # (e) the aggregator over the output tree
+        plots = []
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            plots = ["--no-plots"]
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            aggregate.main(["sweep_adapter_gp", "--output-root", out, *plots])
+        table = buf.getvalue()
+        csv_path = os.path.join(out, "sweep_adapter_gp", "_tables", "Average.csv")
+        log(table.rstrip())
+        if "=== Dataset: Synthetic ===" not in table or not os.path.exists(csv_path):
+            raise RuntimeError("aggregate: no table printed or no Average.csv written")
+        with open(csv_path) as f:
+            log(f"[sweep] aggregate: {csv_path} "
+                f"({'tables only: no matplotlib' if plots else 'with plots'}): "
+                f"{f.read().strip()!r}")
+        torch.cuda.synchronize()
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -2918,6 +3253,7 @@ def main() -> int:
         by_path.update(phase_rn50_trainers(pt))
     by_path["vit_clip_adapter"] = phase_vit_clip_adapter()
     by_path.update(phase_single_trial())
+    by_path.update(phase_sweep(smi))
     for cell in cells:
         counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())

@@ -13,7 +13,9 @@ checkpoint conversion.
   architecture under ``__meta__/``.
 - ``params_from_numpy`` / ``numpy_from_params``: the weights bridge between
   that flat layout and the port's ``CLIP`` module state (blocks unstacked
-  into ``blocks.<i>``, every conv weight OIHW).
+  into ``blocks.<i>``, every conv weight OIHW); ``trial_state_from_numpy``:
+  a JAX trial-stacked head state (the vmapped runner's [T, ...] pytree) →
+  the port's trial-batched state.
 - ``convert_torch_state_dict`` / ``load_torch_checkpoint``: an OpenAI
   ``.pt`` checkpoint (TorchScript archive or plain state dict) → the flat
   layout, with frozen BatchNorm folded into per-channel conv scale/bias in
@@ -65,6 +67,19 @@ def params_from_numpy(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)
         state[key.replace("/", ".")] = torch.tensor(arr)
     return state
+
+
+def trial_state_from_numpy(tree, device=None):
+    """A JAX trial-stacked trainable state as numpy (nested dicts of
+    ``[T, ...]`` arrays, the JAX vmapped runner's pytree) → the port's
+    trial-batched state: the same nesting and leaf names, fp32 tensors on
+    ``device`` (by default the GPU, see ``core/device.py``). The heads'
+    leaves keep their layout in both packages (right-multiply ``[D, H]``
+    MLPs, ``[K, ...]`` per-class GP leaves), so nothing is transposed."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: trial_state_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
 
 
 def numpy_from_params(model: CLIP) -> Dict[str, np.ndarray]:

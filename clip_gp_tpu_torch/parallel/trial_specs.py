@@ -1,0 +1,1122 @@
+"""Method specs of the trial-batched runner (``trial_vmap.py``): for each
+head, its trainable state, loss, eval logits and pre-stages on tensors with
+a leading trial axis ``[T, ...]``, the port of the JAX package's
+``MethodSpec`` family (``clip_gp_tpu/parallel/trial_vmap.py:269-1568``).
+
+The JAX specs write single-trial math and let ``jax.vmap`` add the trial
+axis. Here every tensor carries the trial axis itself:
+
+- every trainable leaf is one tensor ``[T, ...]``; a spec's ``loss``
+  returns the per-trial losses ``[T]``, which the runner sums before one
+  ``backward()``. Trials share no parameter, so each trial's gradient is
+  its own;
+- the GP runs ``[T·K, ...]`` classes through the already class-batched
+  ``gp/svgp.py`` (``TrialGP``); ``svgp.safe_cholesky`` probes each matrix
+  for itself, so one trial's bad Gram cannot reach its neighbours;
+- CoOp assembles ``[T, K, L, W]`` prompts and reshapes them to
+  ``[T·K, L, W]`` for one text-tower call, so K1-K4 launch once per block
+  per step, not T times (no ``torch.func.vmap``: the kernels' autograd
+  Functions have no vmap rule);
+- per-trial hyperparameters on the trial axis (``lr``, ``gp_lr``,
+  ``gp_beta``, ``l2_lambda``, the heads' own) are ``[T]`` tensors broadcast
+  into the loss and into ``TrialOptimizer``'s update;
+- every draw (GP noise) is an argument: the runner hands ``loss`` and
+  ``eval_logits`` a ``draw(shape) -> [T, *shape]`` callable, so tests can
+  feed the JAX package's draws.
+
+CoCoOp has no spec here yet (ROADMAP queue 1, item 1); the sweep routes its
+groups in-process.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from clip_gp_tpu_torch.core.seeding import KeySequence
+from clip_gp_tpu_torch.gp import svgp
+from clip_gp_tpu_torch.methods import common
+from clip_gp_tpu_torch.runtime.optim import (
+    _OverrideLr,
+    build_lr_schedule,
+    cosine_decay,
+    ns5_keller,
+)
+
+Draw = Callable[[Tuple[int, ...]], torch.Tensor]
+
+
+# ----------------------------------------------------------------------
+# trial-batched math
+# ----------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-trial mean CE: logits [T,N,K], labels [T,N] → [T]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(2, labels.long()[..., None])[..., 0].mean(dim=-1)
+
+
+def cosine_logits(features: torch.Tensor, prototypes: torch.Tensor, scale) -> torch.Tensor:
+    """``common.cosine_logits`` per trial: features [T,N,D] (or [N,D] shared
+    by every trial) against prototypes [T,K,D], or MC samples [T,S,K,D]
+    (the mean normalised sample, as the MC mean of the logits)."""
+    f = common.l2_normalize(features)
+    p = common.l2_normalize(prototypes)
+    if p.dim() == 4:
+        p = p.mean(dim=1)
+    return scale * f @ p.transpose(-1, -2)
+
+
+def mc_cross_entropy(features_norm, prototypes, labels, scale) -> torch.Tensor:
+    """``common.mc_cross_entropy`` per trial: [T,N,D], [T,S,K,D], [T,N] →
+    [T] (the mean over samples and images of each sample's CE)."""
+    p = common.l2_normalize(prototypes)
+    logits = scale * torch.einsum("tnd,tskd->tsnk", features_norm, p)
+    logp = torch.log_softmax(logits, dim=-1)
+    idx = labels.long()[:, None, :, None].expand(-1, logits.shape[1], -1, 1)
+    return -logp.gather(3, idx).mean(dim=(1, 2, 3))
+
+
+def _bc(vec: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A [T] vector shaped to broadcast over a [T, ...] tensor of ``ndim``."""
+    return vec.reshape((vec.shape[0],) + (1,) * (ndim - 1))
+
+
+def tree_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf of a nested dict, in insertion order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.extend(tree_leaves(v, f"{prefix}{k}/"))
+        else:
+            out.append((f"{prefix}{k}", v))
+    return out
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def stack_trees(trees):
+    """Single-trial nested dicts → one nested dict of [T, ...] tensors."""
+    first = trees[0]
+    return {
+        k: stack_trees([t[k] for t in trees]) if isinstance(v, dict)
+        else torch.stack([t[k] for t in trees])
+        for k, v in first.items()
+    }
+
+
+class TrialGP:
+    """The GP of T trials as one ``svgp`` batch over T·K classes.
+
+    Parameters arrive trial-batched (``[T, K, ...]``; the class-agnostic
+    ``tmp_bias [T, 1, M]`` and ``A [T, d, d]``) and are folded to the
+    ``[T·K, ...]`` class batch ``svgp`` computes over; the frozen per-class
+    buffers repeat once per trial. Trial t's classes are rows t·K … t·K+K−1,
+    so every per-class computation, the Cholesky probes included, stays
+    within its trial."""
+
+    _PER_CLASS_BUFFERS = ("templates", "templates_red", "f0")
+
+    def __init__(self, static: svgp.GPStatic, buffers, t_trials: int):
+        self.t = int(t_trials)
+        self.k = int(static.num_classes)
+        self.m = int(static.num_templates)
+        self.static = static._replace(num_classes=self.t * self.k)
+        self.buffers = {
+            name: b.repeat((self.t,) + (1,) * (b.dim() - 1))
+            if name in self._PER_CLASS_BUFFERS else b
+            for name, b in buffers.items()
+        }
+
+    def fold(self, params):
+        out = {}
+        for name, v in params.items():
+            if name == "tmp_bias":
+                # one [1, M] row per trial, seen by each of its K classes
+                out[name] = v.expand(self.t, self.k, v.shape[-1]).reshape(
+                    self.t * self.k, v.shape[-1])
+            elif name == "A":
+                out[name] = v  # not read by the forward
+            else:
+                out[name] = v.reshape((self.t * self.k,) + tuple(v.shape[2:]))
+        return out
+
+    def kl(self, params) -> torch.Tensor:
+        """Σ_k KL per trial, [T]."""
+        return svgp.kl_divergence(self.fold(params)).reshape(self.t, self.k).sum(-1)
+
+    def sample_prototypes(self, params, eps: torch.Tensor) -> torch.Tensor:
+        """eps [T,S,K,M] standard-normal draws → prototypes [T,S,K,D]."""
+        s = eps.shape[1]
+        eps_f = eps.permute(1, 0, 2, 3).reshape(s, self.t * self.k, eps.shape[-1])
+        protos, _ = svgp.sample_prototypes(self.static, self.fold(params),
+                                           self.buffers, s, eps=eps_f)
+        return protos.reshape(s, self.t, self.k, -1).permute(1, 0, 2, 3)
+
+    @staticmethod
+    def init_from_weights(params, weights: torch.Tensor):
+        """``svgp.initialize_from_weights`` per trial: weights [T,K,M]."""
+        vm = params["variational_mean"]
+        t, k, p = vm.shape
+        new = svgp.initialize_from_weights(
+            {"variational_mean": vm.reshape(t * k, p)},
+            weights.reshape(t * k, -1))["variational_mean"]
+        return {**params, "variational_mean": new.reshape(t, k, p)}
+
+
+def broadcast_trials(params, t_trials: int):
+    """A single-trial nested dict, copied onto T trials."""
+    return tree_map(lambda v: v.detach()[None].expand((t_trials,) + tuple(v.shape)).clone(),
+                    params)
+
+
+# ----------------------------------------------------------------------
+# the optimizer
+# ----------------------------------------------------------------------
+
+class TrialOptimizer:
+    """The JAX runner's update, per trial: the lr-free transform of the JAX
+    package's ``runtime/optim.py`` ``_core_transform`` (sgd with coupled L2 and
+    momentum, adam with coupled L2, adamw with decoupled decay) followed by
+    ``p ← p − lr_t · u`` with each trial's own lr ``lr_t`` (its base lr
+    times its schedule factor, a [T] vector per step). ``torch.optim``
+    takes one scalar lr per group, so this is the port's own update math.
+
+    ``muon`` is ``MuonWithAuxAdam`` (``runtime/optim.py``) per trial: the
+    bf16 Newton–Schulz-5 batched over [T, rows, cols], Adam for leaves of
+    fewer than two dims per trial. The JAX runner's transform has no Muon,
+    so a Muon group falls back to the in-process backend there; here it
+    stays on the trial axis and is held per trial to the single-trial
+    optimizer.
+
+    A leaf the loss did not reach updates with a zero gradient, as optax
+    updates every leaf."""
+
+    MUON_MOMENTUM = 0.95
+
+    def __init__(self, name: str, weight_decay: float = 0.0,
+                 betas=(0.9, 0.999), eps: float = 1e-8, momentum: float = 0.9,
+                 nesterov: bool = False):
+        self.name = str(name).lower()
+        if self.name not in ("sgd", "adam", "adamw", "muon"):
+            raise ValueError(f"Unsupported optimizer: {name}")
+        self.wd = float(weight_decay)
+        self.b1, self.b2 = (float(b) for b in betas)
+        # Muon's Adam leaves take the constant eps of MuonWithAuxAdam
+        self.eps = 1e-8 if self.name == "muon" else float(eps)
+        self.momentum = float(momentum)
+        self.nesterov = bool(nesterov)
+        self.count = 0
+        self.state: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    @classmethod
+    def from_config(cls, config) -> "TrialOptimizer":
+        """The transform ``config`` names, read as ``_core_transform`` reads it."""
+        return cls(
+            str(config.name),
+            weight_decay=float(getattr(config, "weight_decay", 0.0)),
+            betas=tuple(getattr(config, "betas", (0.9, 0.999))),
+            eps=float(getattr(config, "eps", 1e-8)),
+            momentum=float(getattr(config, "momentum", 0.9)),
+            nesterov=bool(getattr(config, "nesterov", False)),
+        )
+
+    def _update(self, p: torch.Tensor, g: torch.Tensor, st) -> torch.Tensor:
+        wd = self.wd
+        if self.name == "sgd":
+            if wd:
+                g = g + wd * p
+            if not self.momentum:
+                return g
+            buf = g + self.momentum * st["trace"] if "trace" in st else g
+            st["trace"] = buf
+            return g + self.momentum * buf if self.nesterov else buf
+        if self.name == "muon" and p.dim() >= 3:
+            beta = self.MUON_MOMENTUM
+            m = st.get("mu", torch.zeros_like(p))
+            m_new = beta * m + (1.0 - beta) * g
+            u = (1.0 - beta) * g + beta * m_new
+            st["mu"] = m_new
+            # 4-D leaves of one trial flatten to [rows, -1]
+            flat = u.reshape(u.shape[0], u.shape[1], -1) if u.dim() == 5 else u
+            ortho = ns5_keller(flat).reshape(g.shape).to(g.dtype)
+            factor = max(1.0, g.shape[-2] / g.shape[-1]) ** 0.5
+            return ortho * factor + wd * p
+        if self.name == "adam" and wd:
+            g = g + wd * p
+        m = st.get("mu", torch.zeros_like(p))
+        v = st.get("nu", torch.zeros_like(p))
+        m = self.b1 * m + (1.0 - self.b1) * g
+        v = self.b2 * v + (1.0 - self.b2) * torch.square(g)
+        st["mu"], st["nu"] = m, v
+        # bias corrections in float32, as optax's
+        t = np.float32(self.count)
+        m_hat = m / float(np.float32(1.0) - np.float32(self.b1) ** t)
+        v_hat = v / float(np.float32(1.0) - np.float32(self.b2) ** t)
+        u = m_hat / (torch.sqrt(v_hat) + self.eps)
+        # adamw and Muon's Adam leaves decay decoupled
+        return u if self.name == "adam" else u + wd * p
+
+    @torch.no_grad()
+    def step(self, leaves: List[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """One update of every (parameter [T, ...], lr [T]) pair."""
+        self.count += 1
+        for p, lr in leaves:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            st = self.state.setdefault(id(p), {})
+            u = self._update(p, g, st)
+            p.add_(u * _bc(-lr.to(u.dtype), u.dim()))
+            p.grad = None
+
+
+# ----------------------------------------------------------------------
+# pre-stages on the trial axis
+# ----------------------------------------------------------------------
+
+def vmapped_gp_prestage(runner, feats_train, labels_train, text_embeddings=None,
+                        mean_mode: str = "norm_of_raw_mean"):
+    """Per-trial standalone GP fits at once — the trial-axis analog of
+    ``pre_stages.train_gp_stage`` (CE of mean-over-S logits at scale 100 +
+    β·KL, AdamW(gp_lr) under a cosine decay over ``optim.max_epoch`` updates,
+    per-trial template-weight warm start), as the JAX package's
+    ``vmapped_gp_prestage``.
+
+    ``text_embeddings`` overrides the runner's (Tip and TaskRes's GP branch
+    normalize per template first). Draws: ``runner.draws("prestage", epoch,
+    (S_train, K, M))`` per epoch, then ``("prestage_protos", 0, (S_eval, K,
+    M))``. Returns (TrialGP, per-trial GP params [T, ...], mean prototypes
+    [T,K,D] L2-normalized)."""
+    config = runner.config
+    e = text_embeddings if text_embeddings is not None else runner.text_embeddings
+    static, params0, buffers = svgp.create_gp(e, config, runner.device)
+    t_trials = runner.t_trials
+    gp = TrialGP(static, buffers, t_trials)
+    feats_n = common.l2_normalize(feats_train)
+    tw = torch.stack([
+        common.get_template_weights(config, e, feats_n[t], labels_train[t],
+                                    runner.logit_scale)
+        for t in range(t_trials)
+    ])
+    params = TrialGP.init_from_weights(broadcast_trials(params0, t_trials), tw)
+    for v in params.values():
+        v.requires_grad_(True)
+
+    epochs = max(1, int(config.optim.max_epoch))
+    s_tr = max(1, int(config.adapter.gp_num_mc_samples_train or 1))
+    beta = float(config.adapter.gp_beta)
+    sched = cosine_decay(float(config.adapter.gp_lr), epochs)
+    opt = TrialOptimizer("adamw", weight_decay=float(config.optim.weight_decay))
+    k, m = gp.k, gp.m
+    for epoch in range(epochs):
+        protos = gp.sample_prototypes(
+            params, runner.draws("prestage", epoch, (s_tr, k, m)))
+        pn = common.l2_normalize(protos)
+        logits = 100.0 * torch.einsum("tbd,tskd->tbsk", feats_n, pn).mean(dim=2)
+        losses = cross_entropy(logits, labels_train) + beta * gp.kl(params)
+        losses.sum().backward()
+        lr = torch.full((t_trials,), sched(epoch), device=runner.device)
+        opt.step([(p, lr) for p in params.values()])
+    print(f"[vmap-GP-stage] {t_trials} trials x {epochs} epochs, final losses: "
+          + " ".join(f"{v:.3f}" for v in losses.detach().cpu().numpy()))
+
+    params = {name: v.detach() for name, v in params.items()}
+    s_eval = max(1, int(config.adapter.gp_num_mc_samples_eval or 1))
+    with torch.no_grad():
+        protos = gp.sample_prototypes(
+            params, runner.draws("prestage_protos", 0, (s_eval, k, m)))
+        if mean_mode == "mean_of_norm":
+            # clip_adapter convention: the unnormalized mean over normalized
+            # samples (ref: clip_adapter.py:85-97)
+            mean_protos = common.l2_normalize(protos).mean(dim=1)
+        else:
+            # tip/taskres convention: normalize(mean(raw samples))
+            # (ref: tip_adapter.py:151-157, taskres.py:284-290)
+            mean_protos = common.l2_normalize(protos.mean(dim=1))
+    return gp, params, mean_protos
+
+
+def vmapped_tw_prestage(runner, feats_train, labels_train,
+                        l2_to_uniform_lambda: float = 0.0, text_embeddings=None):
+    """Per-trial template-weight-logit fits at once
+    (``pre_stages.train_template_weight_stage`` on the trial axis): AdamW
+    under a cosine decay over ``epochs × n_batches`` updates, stepped once
+    per epoch (the reference's near-constant lr). Returns L2-normalized
+    prototypes [T,K,D]."""
+    config = runner.config
+    e = text_embeddings if text_embeddings is not None else runner.text_embeddings
+    k, m = int(e.shape[0]), int(e.shape[1])
+    feats_n = common.l2_normalize(feats_train)
+    epochs = max(1, int(config.optim.max_epoch))
+    n = int(feats_train.shape[1])
+    bs = max(1, int(config.dataloader.batch_size_train))
+    n_batches = max(1, n // bs) if n >= bs else 1
+    sched = cosine_decay(float(config.optim.lr), max(1, epochs * n_batches))
+    opt = TrialOptimizer("adamw", weight_decay=float(config.optim.weight_decay))
+    tw_logits = torch.zeros(runner.t_trials, k, m, device=runner.device, requires_grad=True)
+    for epoch in range(epochs):
+        weights = torch.softmax(tw_logits, dim=-1)
+        protos = common.l2_normalize(torch.einsum("tkm,kmd->tkd", weights, e))
+        losses = cross_entropy(100.0 * feats_n @ protos.transpose(-1, -2), labels_train)
+        if l2_to_uniform_lambda > 0 and m > 0:
+            losses = losses + l2_to_uniform_lambda * ((weights - 1.0 / m) ** 2).mean(dim=(1, 2))
+        losses.sum().backward()
+        lr = torch.full((runner.t_trials,), sched(epoch), device=runner.device)
+        opt.step([(tw_logits, lr)])
+    with torch.no_grad():
+        weights = torch.softmax(tw_logits, dim=-1)
+        return common.l2_normalize(torch.einsum("tkm,kmd->tkd", weights, e))
+
+
+def _head_optim(optim, lr: float, max_epoch: int, name: str):
+    """``config.optim`` with a head's own lr, epochs and optimizer name, as
+    the in-process heads build it (ref: the ``_TmpOptim`` shim,
+    trainers/clip_adapter.py:152-167)."""
+    view = _OverrideLr(optim, float(lr))
+    view.max_epoch = int(max_epoch)
+    view.name = str(name)
+    return view
+
+
+# ======================================================================
+# Method specs
+# ======================================================================
+
+
+class MethodSpec:
+    """Per-method hooks the trial-batched runner composes. A spec sees the
+    runner (``self.r``) for config, device, text embeddings and the frozen
+    model; every tensor it takes and returns has the trial axis first."""
+
+    name = ""
+    # per-trial scalar hyperparameters that may join the trial axis; names
+    # are config attribute names (adapter.* unless noted)
+    supported_hparams: tuple = ()
+    # sweep-grid OPTS key -> hparam name (the sweep's table of grid keys that
+    # join the trial axis, see vmappable_config_keys)
+    config_keys: Dict[str, str] = {}
+    reencode_per_epoch = False  # re-encode the augmented union each epoch
+    normalize_features = False  # L2-normalize features at extraction
+    needs_val = False  # trial-gathered val features (Tip grid search)
+    extended_metrics = True  # BaseTrainer.test schema (accuracy + macro_f1)
+
+    def __init__(self, runner):
+        self.r = runner
+
+    # -- hyperparameter plumbing ---------------------------------------
+    def hp(self, name, default) -> torch.Tensor:
+        return torch.tensor(
+            [float(o.get(name, default)) for o in self.r.trial_overrides],
+            dtype=torch.float32, device=self.r.device,
+        )
+
+    def lr_vectors(self) -> Dict[str, torch.Tensor]:
+        """group name → per-trial base lr [T]."""
+        raise NotImplementedError
+
+    def lr_group(self, param_name: str) -> str:
+        return "lr"
+
+    def hp_tree(self) -> Dict[str, torch.Tensor]:
+        """Loss scalars, per trial [T]."""
+        return {}
+
+    # -- optimizer / schedule ------------------------------------------
+    def optimizer(self) -> TrialOptimizer:
+        raise NotImplementedError
+
+    def sched_config(self):
+        """Config view whose scheduler family governs this head's lr."""
+        return self.r.config.optim
+
+    def lr_factors(self, epoch: int, batch: int, n_batches: int) -> Dict[str, np.ndarray]:
+        """group → per-trial schedule multipliers [T] at this step: the
+        scheduler family instantiated at each trial's own base lr (torch
+        schedulers track per-group ``base_lrs``), as the JAX runner's."""
+        curves = self._lr_factor_curves()
+        return {g: c[epoch] for g, c in curves.items()}
+
+    def _lr_factor_curves(self):
+        """{group: [max_epoch, T] schedule multipliers}, cached per run."""
+        cached = getattr(self, "_factor_curves", None)
+        if cached is None:
+            epochs = max(1, self.max_epoch())
+            cfg = self.sched_config()
+            cached = {}
+            for group, vec in self.lr_vectors().items():
+                lrs = vec.detach().cpu().numpy().astype(np.float64)
+                curve = np.empty((epochs, lrs.shape[0]), dtype=np.float32)
+                for t, lr in enumerate(lrs):
+                    sched = build_lr_schedule(_OverrideLr(cfg, float(lr)))
+                    denom = max(float(lr), 1e-12)
+                    curve[:, t] = [sched(e) / denom for e in range(epochs)]
+                cached[group] = curve
+            self._factor_curves = cached
+        return cached
+
+    def max_epoch(self) -> int:
+        raise NotImplementedError
+
+    # -- state ----------------------------------------------------------
+    def init_params(self, seed: int) -> Dict:
+        """One trial's initial trainable state (the runner stacks them)."""
+        raise NotImplementedError
+
+    def warm_start(self, params, feats_train, labels_train):
+        return params
+
+    def trial_consts(self, feats_train, labels_train) -> Dict:
+        """Per-trial non-trainable state [T, ...]."""
+        return {}
+
+    # -- compute ----------------------------------------------------------
+    def loss(self, p, c, feats, labels, draw: Draw, hps) -> torch.Tensor:
+        """Per-trial losses [T] of one batch (feats [T,B,D], labels [T,B])."""
+        raise NotImplementedError
+
+    def eval_logits(self, p, c, draw: Draw) -> torch.Tensor:
+        """[T, Ntest, K] on the shared test features."""
+        raise NotImplementedError
+
+    def zero_shot_logits(self, zs_params, consts) -> Optional[torch.Tensor]:
+        """[T, Ntest, K]; default = eval with the pre-warm-start params."""
+        return self.eval_logits(zs_params, consts,
+                                lambda shape: self.r.draws("zero_shot", 0, shape))
+
+    # -- lifecycle hooks --------------------------------------------------
+    def on_epoch_end(self, params, consts, epoch: int) -> None:
+        pass
+
+    def finalize(self, params, consts, val_feats, val_labels):
+        """Post-training adjustment; returns (params, consts) used at eval."""
+        return params, consts
+
+    def export_state(self, params_t: Dict, consts_t: Dict) -> Optional[Dict]:
+        """One trial's state in the in-process trainer's ``trainable_state``
+        layout, so TRAIN.ENABLE_ADAPTER_CHECKPOINTS checkpoints written by
+        this backend reload through ``--eval-only --model-dir`` (ref:
+        utils/trainer.py:347-374, 457-467). None = no checkpoint
+        (Tip-Adapter's flow, like the reference's)."""
+        return None
+
+
+class AdapterSpec(MethodSpec):
+    """Flagship Adapter: visual_proj + {GP weighter | template logits |
+    linear weighting head} (ref: trainers/adapter.py:145-535).
+
+    Every trainable head is on the trial axis: ``freeze_visual_proj`` drops
+    W (frozen at the identity, the projection is skipped, and the L2 term
+    with it), ``shared_template_weights`` is an init-only broadcast, and the
+    linear [D,1] head replays the in-process trainer's first
+    ``KeySequence(seed)`` draw."""
+
+    name = "Adapter"
+    supported_hparams = ("gp_beta", "gp_lr", "lr", "l2_lambda")
+    config_keys = {
+        "TRAINER.ADAPTER.GP_BETA": "gp_beta",
+        "TRAINER.ADAPTER.GP_LR": "gp_lr",
+        "OPTIM.LR": "lr",
+        "TRAINER.ADAPTER.L2_LAMBDA": "l2_lambda",
+    }
+
+    def __init__(self, runner):
+        super().__init__(runner)
+        config = runner.config
+        self.use_gp = bool(config.adapter.use_gp)
+        self.freeze_proj = bool(config.adapter.freeze_visual_proj)
+        # the in-process trainer's mode priority (methods/adapter.py)
+        train_tw = bool(config.adapter.train_template_weights)
+        use_linear = bool(config.adapter.use_linear_template_weighting)
+        if self.use_gp:
+            self.mode = "gp"
+        elif train_tw and not use_linear:
+            self.mode = "logits"
+        elif use_linear:
+            self.mode = "linear"
+        else:
+            # the uniform baseline trains nothing; the sweep runs it in-process
+            raise ValueError(
+                "AdapterSpec needs a trainable head (USE_GP, "
+                "TRAIN_TEMPLATE_WEIGHTS or USE_LINEAR_TEMPLATE_WEIGHTING)"
+            )
+        self.s_train = max(1, int(config.adapter.gp_num_mc_samples_train or 1))
+        self.s_eval = max(1, int(config.adapter.gp_num_mc_samples_eval or 1))
+        self.shots = int(config.dataset.num_shots)
+        if self.use_gp:
+            static, self.gp_params0, buffers = svgp.create_gp(
+                runner.text_embeddings, config, runner.device)
+            self.gp = TrialGP(static, buffers, runner.t_trials)
+
+    def lr_vectors(self):
+        return {
+            "lr": self.hp("lr", self.r.config.optim.lr),
+            "gp": self.hp("gp_lr", self.r.config.adapter.gp_lr),
+        }
+
+    def lr_group(self, param_name):
+        return "gp" if param_name == "gp" else "lr"
+
+    def hp_tree(self):
+        return {
+            "gp_beta": self.hp("gp_beta", self.r.config.adapter.gp_beta),
+            "l2_lambda": self.hp("l2_lambda", self.r.config.adapter.l2_lambda),
+        }
+
+    def optimizer(self):
+        return TrialOptimizer.from_config(self.r.config.optim)
+
+    def max_epoch(self):
+        # every trainer's epoch count comes from clip_adapter_epochs
+        # (ref: utils/trainer.py:256)
+        return int(self.r.config.adapter.clip_adapter_epochs)
+
+    def init_params(self, seed):
+        d, dev = self.r.d, self.r.device
+        params: Dict = {}
+        if not self.freeze_proj:
+            params["visual_proj"] = torch.eye(d, device=dev)
+        if self.mode == "gp":
+            params["gp"] = {k: v.clone() for k, v in self.gp_params0.items()}
+        elif self.mode == "logits":
+            params["template_logits"] = torch.zeros(self.r.k, self.r.m, device=dev)
+        else:
+            # the in-process init: the first draw of KeySequence(seed)
+            gen = KeySequence(int(seed), dev).next()
+            params["template_weight_linear"] = 0.01 * torch.randn(
+                d, 1, generator=gen, device=dev)
+        return params
+
+    def export_state(self, params_t, consts_t):
+        state = dict(params_t)
+        if self.freeze_proj:
+            state["visual_proj"] = np.eye(self.r.d, dtype=np.float32)
+        return state
+
+    def _proj(self, p, feats):
+        """feats @ Wᵀ per trial, skipped when W is frozen at the identity."""
+        return feats if self.freeze_proj else feats @ p["visual_proj"].transpose(-1, -2)
+
+    def warm_start(self, params, feats_train, labels_train):
+        if self.mode == "linear":
+            # the head keeps its random init (the in-process trainer scores
+            # template weights and uses none of them in this mode)
+            return params
+        tw = torch.stack([
+            common.get_template_weights(self.r.config, self.r.text_embeddings,
+                                        feats_train[t], labels_train[t],
+                                        self.r.logit_scale)
+            for t in range(self.r.t_trials)
+        ])  # [T,K,M]
+        params = dict(params)
+        if self.use_gp:
+            params["gp"] = TrialGP.init_from_weights(params["gp"], tw)
+        else:
+            if bool(self.r.config.adapter.shared_template_weights):
+                # shared only at init: the mean row broadcast into the
+                # always-[K,M] parameter (ref: adapter.py:624-634)
+                tw = tw.mean(dim=1, keepdim=True).expand_as(tw)
+            params["template_logits"] = torch.log(tw.clamp(min=1e-12))
+        return params
+
+    def _det_prototypes(self, p):
+        """[T,K,D] prototypes of the deterministic heads."""
+        e = self.r.text_embeddings
+        if self.mode == "logits":
+            w = torch.softmax(p["template_logits"], dim=-1)
+        else:  # linear: per-template score from the [D,1] head
+            w = torch.softmax(torch.einsum("kmd,td->tkm", e,
+                                           p["template_weight_linear"][..., 0]), dim=-1)
+        return torch.einsum("tkm,kmd->tkd", w, e)
+
+    def loss(self, p, c, feats, labels, draw, hps):
+        scale = self.r.logit_scale
+        projected = self._proj(p, feats)
+        if self.use_gp:
+            protos = self.gp.sample_prototypes(
+                p["gp"], draw((self.s_train, self.gp.k, self.gp.m)))
+            total = (mc_cross_entropy(common.l2_normalize(projected), protos, labels, scale)
+                     + hps["gp_beta"] * self.gp.kl(p["gp"]))
+        else:
+            total = cross_entropy(cosine_logits(projected, self._det_prototypes(p), scale),
+                                  labels)
+        # the L2 pull to the identity regularizes the projection only
+        if self.shots > 0 and not self.freeze_proj:
+            wp = p["visual_proj"]
+            eye = torch.eye(self.r.d, device=wp.device)
+            total = total + ((wp - eye) ** 2).sum(dim=(-1, -2)) * (
+                hps["l2_lambda"] / self.shots)
+        return total
+
+    def eval_logits(self, p, c, draw):
+        if self.use_gp:
+            protos = self.gp.sample_prototypes(
+                p["gp"], draw((self.s_eval, self.gp.k, self.gp.m)))
+        else:
+            protos = self._det_prototypes(p)
+        return cosine_logits(self._proj(p, self.r.feats_test), protos, self.r.logit_scale)
+
+
+class ClipAdapterSpec(MethodSpec):
+    """CLIP-Adapter bottleneck MLP, ratio-blended (ref:
+    trainers/clip_adapter.py:16-113). The classifier is the zero-shot
+    clip_weights [D,K], or per trial the GP-mean or learned template-weight
+    prototypes of the pre-stages. The union is re-encoded each epoch through
+    the image tower (K1/K2), once for all trials."""
+
+    name = "CLIP-Adapter"
+    supported_hparams = ("clip_adapter_lr", "clip_adapter_ratio")
+    config_keys = {
+        "TRAINER.ADAPTER.CLIP_ADAPTER_LR": "clip_adapter_lr",
+        "TRAINER.ADAPTER.CLIP_ADAPTER_RATIO": "clip_adapter_ratio",
+    }
+    reencode_per_epoch = True
+
+    def __init__(self, runner):
+        super().__init__(runner)
+        a = runner.config.adapter
+        self.use_gp = bool(a.use_gp)
+        self.use_tw = bool(a.clip_adapter_use_template_weight_training)
+        self._lr_default = float(a.clip_adapter_lr)
+        self._epochs = int(a.clip_adapter_epochs)
+        self._view = _head_optim(runner.config.optim, self._lr_default, self._epochs,
+                                 a.clip_adapter_optimizer)
+        self._zs_weights = common.zero_shot_classifier(runner.text_embeddings)
+
+    def lr_vectors(self):
+        return {"lr": self.hp("clip_adapter_lr", self._lr_default)}
+
+    def hp_tree(self):
+        return {"ratio": self.hp("clip_adapter_ratio",
+                                 self.r.config.adapter.clip_adapter_ratio)}
+
+    def optimizer(self):
+        return TrialOptimizer.from_config(self._view)
+
+    def sched_config(self):
+        return self._view
+
+    def max_epoch(self):
+        return self._epochs
+
+    def init_params(self, seed):
+        from clip_gp_tpu_torch.methods.clip_adapter import init_adapter
+
+        d = self.r.d
+        hidden = max(1, d // max(1, int(self.r.config.adapter.clip_adapter_reduction)))
+        # the in-process init: the first draw of KeySequence(seed)
+        gen = KeySequence(int(seed), self.r.device).next()
+        return init_adapter(d, hidden, generator=gen, device=self.r.device)
+
+    def export_state(self, params_t, consts_t):
+        return {"adapter": {"fc1": params_t["fc1"], "fc2": params_t["fc2"]},
+                "clip_weights": consts_t["clip_weights"]}
+
+    def _logits(self, p, feats, ratio, clip_w):
+        adapted = torch.relu(torch.relu(feats @ p["fc1"]) @ p["fc2"])
+        r = _bc(ratio, 3)
+        f = common.l2_normalize(r * adapted + (1.0 - r) * feats)
+        if self.use_gp:
+            # the GP classifier is the unnormalized mean of normalized
+            # samples: normalizing would drop its uncertainty shrinkage
+            return self.r.logit_scale * f @ clip_w
+        w = clip_w / torch.linalg.vector_norm(clip_w, dim=1, keepdim=True)
+        return self.r.logit_scale * f @ w
+
+    def loss(self, p, c, feats, labels, draw, hps):
+        return cross_entropy(self._logits(p, feats, hps["ratio"], c["clip_weights"]), labels)
+
+    def eval_logits(self, p, c, draw):
+        return self._logits(p, self.r.feats_test, c["ratio"], c["clip_weights"])
+
+    def trial_consts(self, feats_train, labels_train):
+        t = self.r.t_trials
+        if self.use_gp:
+            _, _, protos = vmapped_gp_prestage(self.r, feats_train, labels_train,
+                                               mean_mode="mean_of_norm")
+            clip_w = protos.transpose(1, 2)  # [T,D,K]
+        elif self.use_tw:
+            clip_w = vmapped_tw_prestage(self.r, feats_train, labels_train).transpose(1, 2)
+        else:
+            clip_w = self._zs_weights[None].expand((t,) + tuple(self._zs_weights.shape))
+        return {
+            # eval needs the per-trial ratio (hps only reach the loss)
+            "ratio": self.hp("clip_adapter_ratio", self.r.config.adapter.clip_adapter_ratio),
+            "clip_weights": clip_w,
+        }
+
+    def zero_shot_logits(self, zs_params, consts):
+        # recorded before the pre-stage replaces the classifier, as the
+        # in-process order is (ref: clip_adapter.py train())
+        zs_consts = dict(consts)
+        zs_consts["clip_weights"] = self._zs_weights[None].expand(
+            (self.r.t_trials,) + tuple(self._zs_weights.shape))
+        return self.eval_logits(zs_params, zs_consts, None)
+
+
+class TaskResSpec(MethodSpec):
+    """TaskRes residual on frozen base text features (ref:
+    trainers/taskres.py:35-99); the GP / template-weight pre-stages replace
+    the base features per trial, and the GP variant adds the residuals to
+    each MC prototype sample (ref: taskres.py:101-116)."""
+
+    name = "TaskRes"
+    supported_hparams = ("taskres_lr", "taskres_residual_scale")
+    config_keys = {
+        "TRAINER.ADAPTER.TASKRES_LR": "taskres_lr",
+        "TRAINER.ADAPTER.TASKRES_RESIDUAL_SCALE": "taskres_residual_scale",
+    }
+    reencode_per_epoch = True
+
+    def __init__(self, runner):
+        super().__init__(runner)
+        a = runner.config.adapter
+        self.use_gp = bool(a.use_gp)
+        self.use_tw = bool(a.taskres_use_template_weight_training)
+        self.s_train = max(1, int(a.gp_num_mc_samples_train or 1))
+        self.s_eval = max(1, int(a.gp_num_mc_samples_eval or 1))
+        self.gp = None
+        self._lr_default = float(a.taskres_lr)
+        self._epochs = int(a.taskres_epochs)
+        self._view = _head_optim(runner.config.optim, self._lr_default, self._epochs,
+                                 a.taskres_optimizer)
+        self._zs_weights = common.zero_shot_classifier(runner.text_embeddings)
+
+    def lr_vectors(self):
+        return {"lr": self.hp("taskres_lr", self._lr_default)}
+
+    def _alpha(self):
+        return self.hp("taskres_residual_scale", self.r.config.adapter.taskres_residual_scale)
+
+    def hp_tree(self):
+        return {"alpha": self._alpha()}
+
+    def optimizer(self):
+        return TrialOptimizer.from_config(self._view)
+
+    def sched_config(self):
+        return self._view
+
+    def max_epoch(self):
+        return self._epochs
+
+    def init_params(self, seed):
+        return {"residuals": torch.zeros(self.r.k, self.r.d, device=self.r.device)}
+
+    def trial_consts(self, feats_train, labels_train):
+        t = self.r.t_trials
+        consts = {"alpha": self._alpha()}
+        if self.use_gp:
+            # TaskRes builds the GP's E with per-template L2 normalization
+            # (ref: taskres.py:234), unlike its TW branch
+            self.gp, consts["gp"], consts["base_text"] = vmapped_gp_prestage(
+                self.r, feats_train, labels_train,
+                text_embeddings=common.l2_normalize(self.r.text_embeddings))
+        elif self.use_tw:
+            consts["base_text"] = vmapped_tw_prestage(
+                self.r, feats_train, labels_train,
+                l2_to_uniform_lambda=float(self.r.config.adapter.template_tw_l2_lambda))
+        else:
+            # plain mean over templates (ref: taskres.py:72-94)
+            base = self.r.text_embeddings.mean(dim=1)
+            consts["base_text"] = base[None].expand((t,) + tuple(base.shape))
+        return consts
+
+    def export_state(self, params_t, consts_t):
+        return {"residuals": params_t["residuals"],
+                "base_text_features": consts_t["base_text"]}
+
+    def _text(self, p, c, alpha, draw, num_samples):
+        if self.use_gp:
+            # residuals on each normalized MC prototype sample
+            protos = self.gp.sample_prototypes(c["gp"], draw((num_samples, self.gp.k, self.gp.m)))
+            return common.l2_normalize(protos) + (_bc(alpha, 3) * p["residuals"])[:, None]
+        return c["base_text"] + _bc(alpha, 3) * p["residuals"]
+
+    def loss(self, p, c, feats, labels, draw, hps):
+        text = self._text(p, c, hps["alpha"], draw, self.s_train)
+        return cross_entropy(cosine_logits(feats, text, self.r.logit_scale), labels)
+
+    def eval_logits(self, p, c, draw):
+        text = self._text(p, c, c["alpha"], draw, self.s_eval)
+        return cosine_logits(self.r.feats_test, text, self.r.logit_scale)
+
+    def zero_shot_logits(self, zs_params, consts):
+        # the standard zero-shot classifier at scale 100 (ref: taskres.py
+        # train(): _compute_zeroshot_accuracy)
+        logits = 100.0 * common.l2_normalize(self.r.feats_test) @ self._zs_weights
+        return logits[None].expand((self.r.t_trials,) + tuple(logits.shape))
+
+
+class TipAdapterFSpec(MethodSpec):
+    """Tip-Adapter-F: trainable cache keys with best-on-test state keeping
+    and a per-trial (β, α) val grid search (ref:
+    trainers/tip_adapter.py:225-327). Each trial samples its own few-shot
+    set, so the cache keys and values ride the trial axis."""
+
+    name = "Tip-Adapter"
+    supported_hparams = ("tip_adapter_lr", "tip_adapter_init_beta", "tip_adapter_init_alpha")
+    config_keys = {
+        "TRAINER.ADAPTER.TIP_ADAPTER_LR": "tip_adapter_lr",
+        "TRAINER.ADAPTER.TIP_ADAPTER_INIT_BETA": "tip_adapter_init_beta",
+        "TRAINER.ADAPTER.TIP_ADAPTER_INIT_ALPHA": "tip_adapter_init_alpha",
+    }
+    reencode_per_epoch = True
+    normalize_features = True
+    needs_val = True
+    extended_metrics = False  # the in-process Tip writes the compact dict
+
+    BETAS = (1.0, 2.0, 5.0)
+    ALPHAS = (1.0, 5.0, 10.0, 20.0, 50.0)
+
+    def __init__(self, runner):
+        super().__init__(runner)
+        a = runner.config.adapter
+        self.use_gp = bool(a.use_gp)
+        self.use_tw = bool(a.tip_adapter_use_template_weight_training)
+        self._lr_default = float(a.tip_adapter_lr)
+        self._epochs = int(a.tip_adapter_epochs)
+        self._eps = float(a.tip_adapter_eps) or 1e-8
+        self._zs_weights = common.zero_shot_classifier(runner.text_embeddings)
+        self._best_acc = None  # [T] once tracking starts
+        self._best_w = None  # [T,N,D] best-on-test keys
+
+    def lr_vectors(self):
+        return {"lr": self.hp("tip_adapter_lr", self._lr_default)}
+
+    def optimizer(self):
+        # adam(eps) with optax.adamw's default decay 1e-4, decoupled
+        return TrialOptimizer("adamw", weight_decay=1e-4, eps=self._eps)
+
+    def lr_factors(self, epoch, batch, n_batches):
+        # per-step cosine decay over epochs·n_batches (optax semantics),
+        # proportional in the base lr: one factor serves every trial
+        total = max(1, self._epochs * n_batches)
+        step = min(epoch * n_batches + batch, total)
+        f = 0.5 * (1.0 + math.cos(math.pi * step / total))
+        return {"lr": np.full(self.r.t_trials, f, dtype=np.float32)}
+
+    def max_epoch(self):
+        return self._epochs
+
+    def init_params(self, seed):
+        # placeholder; warm_start copies the per-trial cache keys
+        return {"adapter_w": torch.zeros(1, device=self.r.device)}
+
+    def trial_consts(self, feats_train, labels_train):
+        t = self.r.t_trials
+        cache_vals = F.one_hot(labels_train.long(), self.r.k).float()  # [T,N,K]
+        # Tip normalizes each template embedding before its pre-stages
+        # (ref: tip_adapter.py:98-103)
+        norm_e = common.l2_normalize(self.r.text_embeddings)
+        if self.use_gp:
+            # MC-mean GP prototypes replace the zero-shot classifier
+            _, _, protos = vmapped_gp_prestage(self.r, feats_train, labels_train,
+                                               text_embeddings=norm_e)
+            clip_w = protos.transpose(1, 2)
+        elif self.use_tw:
+            clip_w = vmapped_tw_prestage(self.r, feats_train, labels_train,
+                                         text_embeddings=norm_e).transpose(1, 2)
+        else:
+            clip_w = self._zs_weights[None].expand((t,) + tuple(self._zs_weights.shape))
+
+        # zero init values (the shipped defaults) remove the cache term and
+        # zero the adapter's gradient: train at 1.0 instead, per trial
+        def _nonzero(v):
+            return torch.where(v == 0.0, torch.ones_like(v), v)
+
+        a = self.r.config.adapter
+        return {
+            "cache_vals": cache_vals,
+            "clip_w": clip_w,
+            "beta": _nonzero(self.hp("tip_adapter_init_beta", a.tip_adapter_init_beta)),
+            "alpha": _nonzero(self.hp("tip_adapter_init_alpha", a.tip_adapter_init_alpha)),
+        }
+
+    def warm_start(self, params, feats_train, labels_train):
+        # the adapter starts from each trial's (normalized) cache keys
+        return {"adapter_w": feats_train.detach().clone()}
+
+    def _tip_logits(self, w, c, feats):
+        affinity = feats @ w.transpose(-1, -2)  # [T,B,N]
+        beta = _bc(c["beta"], 3)
+        cache = torch.exp(-(beta - beta * affinity)) @ c["cache_vals"]
+        clip = 100.0 * feats @ c["clip_w"]
+        return clip + _bc(c["alpha"], 3) * cache
+
+    def loss(self, p, c, feats, labels, draw, hps):
+        return cross_entropy(self._tip_logits(p["adapter_w"], c, feats), labels)
+
+    def eval_logits(self, p, c, draw):
+        return self._tip_logits(p["adapter_w"], c, self.r.feats_test)
+
+    def zero_shot_logits(self, zs_params, consts):
+        # the pre-stage replaces the classifier before the zero-shot block
+        # is recorded (ref: tip_adapter.py train())
+        return 100.0 * self.r.feats_test @ consts["clip_w"]
+
+    @torch.no_grad()
+    def on_epoch_end(self, params, consts, epoch):
+        """Keep each trial's best-on-test adapter state (ref:
+        tip_adapter.py:259-267)."""
+        w = params["adapter_w"]
+        logits = self._tip_logits(w, consts, self.r.feats_test)
+        accs = (logits.argmax(-1) == self.r.labels_test_dev[None]).float().mean(-1) * 100.0
+        if self._best_acc is None:
+            self._best_acc = torch.full_like(accs, -math.inf)
+            self._best_w = w.detach().clone()
+        improved = accs > self._best_acc
+        self._best_acc = torch.where(improved, accs, self._best_acc)
+        self._best_w = torch.where(improved[:, None, None], w.detach(), self._best_w)
+
+    @torch.no_grad()
+    def finalize(self, params, consts, val_feats, val_labels):
+        if self._best_w is not None:
+            params = {"adapter_w": self._best_w}
+        if val_feats is None or val_feats.shape[1] == 0:
+            print("[Tip-Adapter] val search unavailable; using init values")
+            return params, consts
+        dev = val_feats.device
+        betas = torch.tensor(self.BETAS, device=dev)
+        alphas = torch.tensor(self.ALPHAS, device=dev)
+        w = params["adapter_w"]
+        affinity = val_feats @ w.transpose(-1, -2)  # [T,Nv,N]
+        cache = torch.exp(betas[None, :, None, None] * (affinity[:, None] - 1.0)
+                          ) @ consts["cache_vals"][:, None]  # [T,B,Nv,K]
+        clip = 100.0 * val_feats @ consts["clip_w"]  # [T,Nv,K]
+        tip = clip[:, None, None] + alphas[None, None, :, None, None] * cache[:, :, None]
+        preds = tip.argmax(-1)  # [T,B,A,Nv]
+        accs = (preds == val_labels[:, None, None]).float().mean(-1).cpu().numpy()
+        flat = accs.reshape(self.r.t_trials, -1).argmax(axis=1)
+        bi, ai = np.unravel_index(flat, accs.shape[1:])
+        beta_t = np.asarray(self.BETAS)[bi]
+        alpha_t = np.asarray(self.ALPHAS)[ai]
+        print("[Tip-Adapter] per-trial (beta, alpha): "
+              + " ".join(f"({b:g},{a:g})" for b, a in zip(beta_t, alpha_t)))
+        consts = dict(consts)
+        consts["beta"] = torch.tensor(beta_t, dtype=torch.float32, device=dev)
+        consts["alpha"] = torch.tensor(alpha_t, dtype=torch.float32, device=dev)
+        return params, consts
+
+
+class CoOpSpec(MethodSpec):
+    """CoOp learnable prompt context (ref: trainers/adapter_coop.py:453-560).
+
+    The trainable state is the context block ([n_ctx, W], or [K, n_ctx, W]
+    with ``csc``) per trial. Every step assembles the T trials' prompts as
+    one [T·K, L, W] batch through the frozen text tower, forward (K1/K2)
+    and backward (K4/K3) once per block: one tower pass of T·K prompts in
+    place of T passes of K. The image features are the frozen tower's
+    encodes of the augmented few-shot union, once per epoch for all trials.
+    Backward keeps every block's input of the T·K prompts, so a large T·K
+    needs a smaller group."""
+
+    name = "Adapter-CoOp"
+    supported_hparams = ("lr",)
+    config_keys = {"OPTIM.LR": "lr"}
+    reencode_per_epoch = True
+    normalize_features = True
+
+    def __init__(self, runner):
+        super().__init__(runner)
+        from clip_gp_tpu_torch.methods.coop import build_prompt_parts, trim_prompt_parts
+
+        config = runner.config
+        self._base_lr = float(config.optim.lr)
+        self._use_csc = bool(config.adapter.csc)
+        self._ctx_init = str(config.adapter.ctx_init or "")
+        # the parts are identical across trials (same classnames); the
+        # first seed's draw only matters for ctx_init=""'s placeholder
+        ctx0, prefix, suffix, tokenized, self._n_ctx = build_prompt_parts(
+            config, runner.classnames, runner.clip_model,
+            generator=KeySequence(int(runner.seeds[0]), runner.device).next())
+        self._ctx0 = ctx0  # phrase-derived with ctx_init, else ignored
+        self._ctx_dim = int(ctx0.shape[-1])
+        self._prefix = prefix
+        self._suffix = trim_prompt_parts(suffix, tokenized, self._n_ctx)
+        self._eot = tokenized.argmax(dim=-1)
+        self.prompt_len = 1 + self._n_ctx + int(self._suffix.shape[1])
+
+    def lr_vectors(self):
+        return {"lr": self.hp("lr", self._base_lr)}
+
+    def optimizer(self):
+        return TrialOptimizer.from_config(self.r.config.optim)
+
+    def max_epoch(self):
+        return int(self.r.config.adapter.clip_adapter_epochs)
+
+    def init_params(self, seed):
+        if self._ctx_init:
+            # phrase-initialized ctx is shared by all seeds
+            return {"ctx": self._ctx0.clone()}
+        shape = ((self.r.k, self._n_ctx, self._ctx_dim) if self._use_csc
+                 else (self._n_ctx, self._ctx_dim))
+        # the in-process init: 0.02 × the first draw of KeySequence(seed)
+        gen = KeySequence(int(seed), self.r.device).next()
+        return {"ctx": 0.02 * torch.randn(shape, generator=gen, device=self.r.device)}
+
+    def export_state(self, params_t, consts_t):
+        return {"ctx": params_t["ctx"]}
+
+    def text_features(self, ctx: torch.Tensor) -> torch.Tensor:
+        """Normalized text features [T,K,E] of every trial's K prompts, from
+        ONE tower call over the [T·K, L, W] prompt batch."""
+        from clip_gp_tpu_torch.models.clip_model import prompt_tower_dtype
+
+        t, k = ctx.shape[0], self.r.k
+        if ctx.dim() == 3:  # shared context [T, n_ctx, W]
+            ctx = ctx[:, None].expand(t, k, -1, -1)
+        prompts = torch.cat([
+            self._prefix[None].expand((t,) + tuple(self._prefix.shape)),
+            ctx,
+            self._suffix[None].expand((t,) + tuple(self._suffix.shape)),
+        ], dim=2)
+        feats = self.r.clip_model.text_features_from_embeddings(
+            prompts.reshape((t * k,) + tuple(prompts.shape[2:])),
+            self._eot.repeat(t), compute_dtype=prompt_tower_dtype())
+        return common.l2_normalize(feats.reshape(t, k, -1))
+
+    def loss(self, p, c, feats, labels, draw, hps):
+        text = self.text_features(p["ctx"])
+        return cross_entropy(self.r.logit_scale * feats @ text.transpose(-1, -2), labels)
+
+    def eval_logits(self, p, c, draw):
+        # the text features once per eval, for the whole test split
+        text = self.text_features(p["ctx"])
+        return self.r.logit_scale * self.r.feats_test @ text.transpose(-1, -2)
+
+    def zero_shot_logits(self, zs_params, consts):
+        # the template classifier at fixed scale 100, not the initial ctx
+        # (methods/coop.py train())
+        zs_w = common.zero_shot_classifier(self.r.text_embeddings)
+        logits = 100.0 * self.r.feats_test @ zs_w
+        return logits[None].expand((self.r.t_trials,) + tuple(logits.shape))
+
+
+SPECS = {
+    "Adapter": AdapterSpec,
+    "CLIP-Adapter": ClipAdapterSpec,
+    "TaskRes": TaskResSpec,
+    "Tip-Adapter": TipAdapterFSpec,
+    "Adapter-CoOp": CoOpSpec,
+}
+
+
+def vmappable_config_keys() -> Dict[str, Dict[str, str]]:
+    """Per-method sweep-grid OPTS keys that may join the trial axis, from
+    each spec's ``config_keys`` (one source of truth with
+    ``supported_hparams``). CoCoOp keeps the JAX package's entry (``OPTIM.LR``)
+    so the sweep groups its trials as the JAX runner does, then routes the
+    groups in-process."""
+    out = {}
+    for name, cls in SPECS.items():
+        unknown = set(cls.config_keys.values()) - set(cls.supported_hparams)
+        assert not unknown, f"{name}: config_keys not in supported_hparams: {unknown}"
+        out[name] = dict(cls.config_keys)
+    out["Adapter-CoCoOp"] = {"OPTIM.LR": "lr"}
+    return out
