@@ -215,14 +215,17 @@ KERNELS = {
     ),
 }
 
-# (name, batch, tokens, width, heads, causal): the main path's two towers —
-# ViT-B/16 at 32 images and at the image-encode device batch of the training
-# path (methods/common.py extract_device_batch()), the text tower at the
-# template-encode batch (encode_templates' batch_size)
+# (name, batch, tokens, width, heads, causal, dtypes): the main path's two
+# towers — ViT-B/16 at 32 images and at the image-encode device batch of the
+# training path (methods/common.py extract_device_batch()), the text tower at
+# the template-encode batch (encode_templates' batch_size), and the trimmed
+# text tower's forward in a trial-batched CoOp step of phase 11 (T x K =
+# 4 x 100 prompts of 24 tokens, in the prompt tower's fp32)
 SHAPES = [
-    ("vit-b16", 32, 197, 768, 12, False),
-    ("vit-b16", 512, 197, 768, 12, False),
-    ("text", 256, 77, 512, 8, True),
+    ("vit-b16", 32, 197, 768, 12, False, ("fp32", "bf16")),
+    ("vit-b16", 512, 197, 768, 12, False, ("fp32", "bf16")),
+    ("text", 256, 77, 512, 8, True, ("fp32", "bf16")),
+    ("text-coop-sweep", 400, 24, 512, 8, True, ("fp32",)),
 ]
 
 # Kernel vs plain tolerances, elementwise |kernel - plain| <= atol + rtol*|plain|.
@@ -655,8 +658,9 @@ def phase_kernels(device, peaks):
     from clip_gp_tpu_torch.ops import flash_attention as fa
 
     cells = []
-    for shape_name, b, n, d, heads, causal in SHAPES:
-        for dtype_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    for shape_name, b, n, d, heads, causal, dtype_names in SHAPES:
+        for dtype_name in dtype_names:
+            dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
             p = _block_inputs(b, n, d, causal, dtype, device, seed=len(cells))
             for key in ("w_qkv", "w_out", "w_fc", "w_proj"):
                 p[key + "_t"] = p[key].t().contiguous()  # F.linear layout
@@ -1681,7 +1685,9 @@ def phase_towers(device, backbone="ViT-B/16", n_images=32, n_prompts=256):
         if err > TOWER_TOL * scale:
             raise RuntimeError(f"{what}: kernel tower disagrees with the plain one")
     _tower_q8(model, arch, images, img_k, backbone)
+    # a CoOp step's prompts in-process (K) and trial-batched in phase 11 (T x K)
     _tower_grad(model, device)
+    _tower_grad(model, device, n_prompts=len(SWEEP_SEEDS) * SWEEP_COOP_CLASSES)
     del model
 
 
@@ -1720,8 +1726,9 @@ def _tower_q8(model, arch, images, fp32_features, backbone):
 
 def _tower_grad(model, device, n_prompts=100, n=24, n_images=32):
     """The gradient of a CoOp-shaped loss (cross-entropy of 100 x cosine
-    logits) with respect to the prompt embeddings, through K1-K4 and
-    through every block's plain forward and plain backward, compared."""
+    logits over ``n_prompts`` prompts) with respect to the prompt
+    embeddings, through K1-K4 and through every block's plain forward and
+    plain backward, compared."""
     import torch
     import torch.nn.functional as F
 
@@ -2914,6 +2921,10 @@ def phase_single_trial(backbone="ViT-B/16"):
 SWEEP_SEEDS = [1, 2, 3, 4]
 SWEEP_LRS = [1e-3, 1e-2]
 SWEEP_COOP_CLASSES = 100
+# CoOp's images per step: all of the 1-shot tree's 100 in one batch, so the
+# in-process trial's loader shuffle and the group's per-trial permutation
+# give each step the same images and the two runs can be compared
+SWEEP_COOP_BATCH = 128
 # a trial run in-process or in a child process against the same trial of a
 # trial-batched group: top-1 equal, the other metrics within this
 SWEEP_METRIC_TOL = 1e-3
@@ -3042,6 +3053,18 @@ def _vmapped(what, results, n_trials):
                            f"backend, got {[(r['seed'], r['backend']) for r in results]}")
 
 
+def _check_same_trial(path, got, ref):
+    """A trial run alone against the same trial of its trial-batched group:
+    top-1 equal, the other metrics within SWEEP_METRIC_TOL. Returns the
+    differences."""
+    diff = {k: abs(got["metrics"][k] - ref["metrics"][k])
+            for k in ("top1_acc", "ece", "aece", "macro_f1")}
+    if diff["top1_acc"] != 0 or max(diff.values()) > SWEEP_METRIC_TOL:
+        raise RuntimeError(f"{path}: the trial differs from its trial-batched "
+                           f"run: {diff}")
+    return diff
+
+
 def _sweep_line(path, seconds, n_trials, trial_seconds, phases, launches,
                 trial_launches, smi, extra=""):
     k1 = "fused_ln_attention_block"
@@ -3117,15 +3140,18 @@ def phase_sweep(smi, backbone="ViT-B/16"):
         by_path["sweep_adapter_gp"] = launches
         by_path["sweep_adapter_gp_trial"] = trial_launches
 
-        # (b) CoOp on 100 classes, 1 shot, 2 epochs: one group of 4
-        coop = dict(TRAINER={"ADAPTER": {"CLIP_ADAPTER_EPOCHS": 2}})
+        # (b) CoOp on 100 classes, 1 shot, 2 epochs: one group of 4, its
+        # seed-1 trial held to the same trial run in-process
+        coop = dict(TRAINER={"ADAPTER": {"CLIP_ADAPTER_EPOCHS": 2}},
+                    DATALOADER={"TRAIN_X": {"BATCH_SIZE": SWEEP_COOP_BATCH}})
         with _RunnerProbe() as probe:
             results, launches, phases, seconds = _sweep_run(
                 experiment("sweep_coop", "coop.yaml", wide, SWEEP_SEEDS, [1], {}, **coop),
                 "--backend", "vmap", "--strict-vmap")
         _vmapped("sweep_coop", results, 4)
         runner = probe.runners[0]
-        steps = 2 * len(common.batch_slices(runner.k, 32))
+        # 1 shot: as many train images as classes
+        steps = 2 * len(common.batch_slices(runner.k, SWEEP_COOP_BATCH))
         moved = (runner.params["ctx"] - probe.initial[0]["ctx"]).abs().flatten(1).amax(1)
         images = (_image_encodes(probe.unions, batch)
                   + _image_encodes([len(runner.labels_test)], batch))
@@ -3135,12 +3161,15 @@ def phase_sweep(smi, backbone="ViT-B/16"):
             k3: layers_t * steps, k4: layers_t * steps})
         if not bool((moved > 0).all()):
             raise RuntimeError(f"sweep_coop: a trial's context did not move: {moved}")
-        _, trial_launches, trial_s = trial("sweep_coop_trial", "coop.yaml", wide, [1], {},
-                                           **coop)
+        one, trial_launches, trial_s = trial("sweep_coop_trial", "coop.yaml", wide, [1],
+                                             {}, **coop)
+        [ref] = [r for r in results if r["seed"] == SWEEP_SEEDS[0]]
+        diff = _check_same_trial("sweep_coop", one, ref)
         _sweep_line("sweep_coop", seconds, 4, trial_s, phases, launches, trial_launches,
-                    smi, extra=f"; {steps} steps, K3 {launches[k3]} and K4 {launches[k4]} "
-                    f"= {launches[k3] // steps} per step ({layers_t} blocks) at T x K = "
-                    f"{4 * runner.k} prompts, the in-process trial's K3 "
+                    smi, extra=f"; seed {SWEEP_SEEDS[0]} in-process against its "
+                    f"trial-batched run: |diff| {diff}; {steps} steps, K3 {launches[k3]} "
+                    f"and K4 {launches[k4]} = {launches[k3] // steps} per step ({layers_t} "
+                    f"blocks) at T x K = {4 * runner.k} prompts, the in-process trial's K3 "
                     f"{trial_launches[k3]}; every trial's context moved, by up to "
                     f"{[round(v, 6) for v in moved.tolist()]}")
         by_path["sweep_coop"] = launches
@@ -3184,15 +3213,11 @@ def phase_sweep(smi, backbone="ViT-B/16"):
             one = experiment(path, "baseline.yaml", small, SWEEP_SEEDS[:1], [4],
                              {"OPTIM.LR": SWEEP_LRS[:1]}, **gp)
             [got], run_launches, _, run_s = _sweep_run(one, *args)
-            diff = {k: abs(got["metrics"][k] - ref["metrics"][k])
-                    for k in ("top1_acc", "ece", "aece", "macro_f1")}
+            diff = _check_same_trial(path, got, ref)
             log(f"[sweep] {path}: the trial (seed {SWEEP_SEEDS[0]}, {sig}) in "
                 f"{run_s:.2f} s against the same trial of the trial-batched group "
                 f"({seconds:.2f} s for 8, {seconds / 8:.3f} s per trial): |diff| {diff}; "
                 f"{smi}")
-            if diff["top1_acc"] != 0 or max(diff.values()) > SWEEP_METRIC_TOL:
-                raise RuntimeError(f"{path}: the trial differs from its trial-batched "
-                                   f"run: {diff}")
             if path == "sweep_inprocess":
                 # a child's launches are counted in the child
                 by_path[path] = run_launches

@@ -422,6 +422,9 @@ class VmappedTrials:
 
 def run_seed_vmapped_adapter(config, seeds: Sequence[int], trial_outdirs=None,
                              trial_overrides=None, **kwargs):
+    """``run_vmapped_trials`` with ``method="Adapter"``, kept so that the JAX
+    package's entry point (ref: parallel/trial_vmap.py:2529) has its
+    counterpart here."""
     return VmappedTrials(config, seeds, trial_overrides=trial_overrides,
                          method="Adapter", **kwargs).run(trial_outdirs)
 

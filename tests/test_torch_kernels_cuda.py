@@ -87,12 +87,14 @@ K1_SHAPES = [  # (batch, tokens, width, heads, causal)
     (1, 256, 256, 4, False),
     (2, 17, 128, 2, True),
     (1, 256, 128, 2, True),
+    (400, 24, 512, 8, True),  # a trial-batched CoOp step, T x K = 4 x 100
 ]
 K2_SHAPES = [  # (batch, tokens, width, hidden)
     (3, 1, 128, 512),
     (2, 197, 768, 3072),
     (3, 77, 512, 2048),
     (2, 33, 200, 808),
+    (400, 24, 512, 2048),
 ]
 
 
