@@ -18,9 +18,11 @@ exits non-zero before printing any result. Phases, each raising on failure:
    trimmed text tower (N=24, D=512, H=8, causal) at B=100 (a CoOp step on
    100 classes) and B=256 (a CoCoOp chunk at PROMPT_BUDGET), fp32, and B=256
    with a bf16 x — each asked for dx only (what the prompt learners launch)
-   and for all seven gradients, and at B=400 (a trial-batched CoOp step
-   of phase 11: 4 trials x 100 classes); K3 also at B=100 on the untrimmed
-   text tower (N=77, fp32); K5 and K6 (the int8 blocks of the serving
+   and for all seven gradients, at B=400 (a trial-batched CoOp step
+   of phase 11: 4 trials x 100 classes) and at B=800 (one image chunk of
+   a trial-batched CoCoOp step: 4 trials x 2 images x 100 classes), with K1
+   and K2 at the same two batches (N=24, fp32, causal); K3 also at B=100 on
+   the untrimmed text tower (N=77, fp32); K5 and K6 (the int8 blocks of the serving
    tower) at ViT-B/16 B=32 and B=512 in bf16 (the serving dtype) and B=32
    in fp32; K7 (standalone attention on [B, H, N, Dh]) at ViT-B/16's heads
    (B=32 and B=512, H=12, N=197, Dh=64) and the text tower's (B=256, H=8,
@@ -136,17 +138,28 @@ exits non-zero before printing any result. Phases, each raising on failure:
    group, T=8; K1/K2 exactly once per group for the text, union and test
    encodes), ``Adapter-CoOp`` on 100 classes, 1 shot (T=4, 2 epochs; K1-K4
    exactly once per block per step at T x K prompts, every trial's context
-   moved) and Tip-Adapter-F (T=4; the val split and each trial's (beta,
-   alpha) on the grid), each beside its first trial run in-process; the
-   Adapter without the GP (T=8) against its trial (seed 1, the first lr)
-   run by ``--backend inprocess`` and by ``--backend subprocess --devices
-   0`` (top-1 equal, metrics within SWEEP_METRIC_TOL); then the aggregator
-   over the output tree (``--no-plots`` without matplotlib). ``[sweep]``
-   lines give each group's seconds, seconds per trial beside the in-process
-   trial's, the ``vmap.*`` phase report and the card (paths
-   ``sweep_adapter_gp``, ``sweep_coop``, ``sweep_tip_f``,
-   ``sweep_adapter``, ``sweep_inprocess`` and the ``*_trial`` runs; the
-   child process's launches are counted in the child);
+   moved), ``Adapter-CoCoOp`` on the same 100 classes (T=4, one step of
+   all 100 images: 50 checkpointed chunks of T x 2 images x 100 prompts,
+   K1/K2 twice and K3/K4 once per block per chunk, once per block per eval
+   chunk, every trial's ctx and meta-net moved; its seed-1 trial in-process
+   with top-1 and macro-F1 equal) and Tip-Adapter-F (T=4; the val split and
+   each trial's (beta, alpha) on the grid), each beside its first trial run
+   in-process; the Adapter without the GP (T=8) against its trial (seed 1,
+   the first lr) run by ``--backend inprocess`` and by ``--backend
+   subprocess --devices 0`` (top-1 equal, metrics within
+   SWEEP_METRIC_TOL); the decode-ahead pair: the GP trainer's config at 1
+   and 2 shots on the 100-class tree (two feature-cached groups of T=4) with
+   ``CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH=1`` and then with
+   decode-ahead, which must announce ``prefetching group 2/2`` and write
+   every metrics.json equal but for its wall-clock fields, both wall times
+   printed; then the aggregator over the output tree (``--no-plots``
+   without matplotlib). ``[sweep]`` lines give each group's seconds,
+   seconds per trial beside the in-process trial's, the ``vmap.*`` phase
+   report and the card (paths ``sweep_adapter_gp``, ``sweep_coop``,
+   ``sweep_cocoop``, ``sweep_tip_f``, ``sweep_adapter``,
+   ``sweep_inprocess``, ``sweep_prefetch_sequential``,
+   ``sweep_prefetch_decode_ahead`` and the ``*_trial`` runs; the child
+   process's launches are counted in the child);
 12. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -220,12 +233,14 @@ KERNELS = {
 # training path (methods/common.py extract_device_batch()), the text tower at
 # the template-encode batch (encode_templates' batch_size), and the trimmed
 # text tower's forward in a trial-batched CoOp step of phase 11 (T x K =
-# 4 x 100 prompts of 24 tokens, in the prompt tower's fp32)
+# 4 x 100 prompts of 24 tokens, in the prompt tower's fp32) and in one
+# image chunk of a trial-batched CoCoOp step (T x C x K = 4 x 2 x 100)
 SHAPES = [
     ("vit-b16", 32, 197, 768, 12, False, ("fp32", "bf16")),
     ("vit-b16", 512, 197, 768, 12, False, ("fp32", "bf16")),
     ("text", 256, 77, 512, 8, True, ("fp32", "bf16")),
     ("text-coop-sweep", 400, 24, 512, 8, True, ("fp32",)),
+    ("text-cocoop-sweep", 800, 24, 512, 8, True, ("fp32",)),
 ]
 
 # Kernel vs plain tolerances, elementwise |kernel - plain| <= atol + rtol*|plain|.
@@ -239,14 +254,16 @@ TOLERANCES = {"fp32": (1e-4, 1e-4), "bf16": (2.0**-6, 2.0**-7)}
 # cells: the trimmed text tower of the prompt learners (n_ctx 16 + a class
 # name covers 24 positions), a CoOp step on 100 classes and a CoCoOp chunk
 # of 256 prompts; K3 at a CoOp step on the untrimmed tower
-# (CLIP_GP_TPU_TORCH_TRIM_PROMPTS=0: 77 tokens); and a trial-batched CoOp
-# step of phase 11 (T x K = 4 x 100 prompts)
+# (CLIP_GP_TPU_TORCH_TRIM_PROMPTS=0: 77 tokens); a trial-batched CoOp
+# step of phase 11 (T x K = 4 x 100 prompts) and one image chunk of a
+# trial-batched CoCoOp step (T x C x K = 4 x 2 x 100 prompts)
 BWD_SHAPES = [
     ("coop", 100, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
     ("cocoop", 256, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
     ("cocoop", 256, 24, 512, 8, "bf16", ("ln_attn_bwd", "ln_mlp_bwd")),
     ("coop-untrimmed", 100, 77, 512, 8, "fp32", ("ln_attn_bwd",)),
     ("coop-sweep", 400, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
+    ("cocoop-sweep", 800, 24, 512, 8, "fp32", ("ln_attn_bwd", "ln_mlp_bwd")),
 ]
 # K3/K4 kernel vs plain: both recompute the block in fp32 and sum up to
 # T = B·N rows of fp32 products into each weight gradient, in other orders;
@@ -2928,6 +2945,19 @@ SWEEP_COOP_BATCH = 128
 # a trial run in-process or in a child process against the same trial of a
 # trial-batched group: top-1 equal, the other metrics within this
 SWEEP_METRIC_TOL = 1e-3
+# CoCoOp's group: one epoch of one step over all 100 images (50 chunks of
+# 2 images, T x C x K = 800 prompts a tower call), a random 16-token
+# context per trial (cocoop.yaml's phrase init would give every trial the
+# same context and 16-token prompts), the same 24-token prompts as CoOp
+SWEEP_COCOOP = dict(TRAINER={"ADAPTER": {"CLIP_ADAPTER_EPOCHS": 1, "N_CTX": 16,
+                                         "CTX_INIT": ""}},
+                    DATALOADER={"TRAIN_X": {"BATCH_SIZE": SWEEP_COOP_BATCH}})
+# the decode-ahead pair: the GP trainer's config at two shot counts (two
+# feature-cached groups of T=4 on the 100-class tree), run with and without
+# decode-ahead; these metrics.json fields are wall clock, all others must
+# be equal
+SWEEP_PREFETCH_SHOTS = [1, 2]
+WALL_CLOCK_FIELDS = ("timestamp", "train_time_s")
 
 
 def _deep_update(base, over):
@@ -3065,6 +3095,37 @@ def _check_same_trial(path, got, ref):
     return diff
 
 
+class _Tee:
+    """Writes to the smoke's stdout and keeps a copy, so a check can read
+    what a run printed."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _trial_payloads(results):
+    """Each trial's metrics.json without its wall-clock fields, by (shots,
+    seed)."""
+    out = {}
+    for r in results:
+        with open(os.path.join(r["out_dir"], "metrics.json")) as f:
+            payload = json.load(f)
+        for key in WALL_CLOCK_FIELDS:
+            payload.pop(key)
+        out[(r["shots"], r["seed"])] = payload
+    return out
+
+
 def _sweep_line(path, seconds, n_trials, trial_seconds, phases, launches,
                 trial_launches, smi, extra=""):
     k1 = "fused_ln_attention_block"
@@ -3079,11 +3140,13 @@ def phase_sweep(smi, backbone="ViT-B/16"):
     """Phase 11: the sweep runner through ``parallel.sweep.main`` on the
     trial-batched backend (``--backend vmap --strict-vmap``), each group
     beside one of its trials run in-process: the GP trainer's seeds x lr
-    grid (T=8), CoOp on 100 classes (T=4), Tip-Adapter-F (T=4), the Adapter
-    without the GP (T=8) against one trial in-process and in a child
-    process, then the aggregator over the output tree. Returns the launches
-    of each run in this process."""
+    grid (T=8), CoOp and CoCoOp on 100 classes (T=4), Tip-Adapter-F (T=4),
+    the Adapter without the GP (T=8) against one trial in-process and in a
+    child process, two GP groups without and with decode-ahead, then the
+    aggregator over the output tree. Returns the launches of each run in
+    this process."""
     import io
+    import shutil
     from contextlib import redirect_stdout
 
     import torch
@@ -3091,6 +3154,8 @@ def phase_sweep(smi, backbone="ViT-B/16"):
     from clip_gp_tpu_torch.data.datasets.synthetic import generate_synthetic_imagefolder
     from clip_gp_tpu_torch.methods import common
     from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+    from clip_gp_tpu_torch.parallel import trial_vmap
+    from clip_gp_tpu_torch.parallel.trial_specs import tree_leaves
     from clip_gp_tpu_torch.reporting import aggregate
 
     os.environ["CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS"] = "1"
@@ -3175,6 +3240,52 @@ def phase_sweep(smi, backbone="ViT-B/16"):
         by_path["sweep_coop"] = launches
         by_path["sweep_coop_trial"] = trial_launches
 
+        # (b2) CoCoOp on the same 100 classes, 1 shot, under --strict-vmap:
+        # one group of 4 whose every image chunk sends T x C x K prompts
+        # through one tower call, its seed-1 trial held to the same trial
+        # run in-process
+        from clip_gp_tpu_torch.methods import cocoop
+
+        with _RunnerProbe() as probe:
+            results, launches, phases, seconds = _sweep_run(
+                experiment("sweep_cocoop", "cocoop.yaml", wide, SWEEP_SEEDS, [1], {},
+                           **SWEEP_COCOOP),
+                "--backend", "vmap", "--strict-vmap")
+        _vmapped("sweep_cocoop", results, 4)
+        runner = probe.runners[0]
+        chunk = max(1, cocoop.PROMPT_BUDGET // runner.k)
+        slices = common.batch_slices(runner.k, SWEEP_COOP_BATCH)
+        train_chunks = sum(math.ceil((hi - lo) / chunk) for lo, hi in slices)
+        eval_chunks = math.ceil(len(runner.labels_test) / chunk)
+        images = (_image_encodes(probe.unions, batch)
+                  + _image_encodes([len(runner.labels_test)], batch))
+        text = math.ceil(runner.k * runner.m / 256)
+        fwd = layers_v * images + layers_t * (text + 2 * train_chunks + eval_chunks)
+        _check_exact("sweep_cocoop", launches, {
+            k1: fwd, k2: fwd, k3: layers_t * train_chunks, k4: layers_t * train_chunks})
+        moved = {path: (leaf - dict(tree_leaves(probe.initial[0]))[path]).abs()
+                 .flatten(1).amax(1).tolist()
+                 for path, leaf in tree_leaves(runner.params)}
+        if not all(v > 0 for per_trial in moved.values() for v in per_trial):
+            raise RuntimeError(f"sweep_cocoop: a trial's parameter did not move: {moved}")
+        one, trial_launches, trial_s = trial("sweep_cocoop_trial", "cocoop.yaml", wide,
+                                             [1], {}, **SWEEP_COCOOP)
+        [ref] = [r for r in results if r["seed"] == SWEEP_SEEDS[0]]
+        diff = _check_same_trial("sweep_cocoop", one, ref)
+        if diff["macro_f1"] != 0:
+            raise RuntimeError(f"sweep_cocoop: macro-F1 differs from the in-process "
+                               f"trial: {diff}")
+        _sweep_line("sweep_cocoop", seconds, 4, trial_s, phases, launches, trial_launches,
+                    smi, extra=f"; seed {SWEEP_SEEDS[0]} in-process against its "
+                    f"trial-batched run: |diff| {diff}; {train_chunks} train and "
+                    f"{eval_chunks} eval chunks of {chunk} images at T x C x K = "
+                    f"{4 * chunk * runner.k} prompts of {runner.spec.prompt_len} tokens, K3 "
+                    f"{launches[k3]} and K4 {launches[k4]}, the in-process trial's K3 "
+                    f"{trial_launches[k3]}; every trial's ctx and meta-net moved, by "
+                    f"up to {json.dumps({k: max(v) for k, v in moved.items()})}")
+        by_path["sweep_cocoop"] = launches
+        by_path["sweep_cocoop_trial"] = trial_launches
+
         # (c) Tip-Adapter-F: the val split and each trial's (beta, alpha)
         tip = dict(TRAINER={"ADAPTER": {"TIP_ADAPTER_EPOCHS": 10}})
         with _RunnerProbe() as probe:
@@ -3221,6 +3332,53 @@ def phase_sweep(smi, backbone="ViT-B/16"):
             if path == "sweep_inprocess":
                 # a child's launches are counted in the child
                 by_path[path] = run_launches
+
+        # (f) decode-ahead: one sweep of two feature-cached groups (the GP
+        # trainer's config at two shot counts) without and with it; each
+        # trial's metrics.json must be the same but for its wall clock
+        pair = experiment("sweep_prefetch", "gp.yaml", wide, SWEEP_SEEDS,
+                          SWEEP_PREFETCH_SHOTS, {}, **gp)
+        runs = {}
+        for mode, disable in (("sequential", "1"), ("decode-ahead", None)):
+            shutil.rmtree(os.path.join(out, "sweep_prefetch"), ignore_errors=True)
+            if disable:
+                os.environ["CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH"] = disable
+            made = []
+            real = trial_vmap.DecodePrefetcher
+
+            def recording(*args, **kwargs):
+                made.append(real(*args, **kwargs))
+                return made[-1]
+
+            tee = _Tee(sys.stdout)
+            try:
+                with mock.patch.object(trial_vmap, "DecodePrefetcher", recording), \
+                        redirect_stdout(tee):
+                    results, launches, phases, seconds = _sweep_run(
+                        pair, "--backend", "vmap", "--strict-vmap")
+            finally:
+                os.environ.pop("CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH", None)
+            _vmapped(f"sweep_prefetch ({mode})", results, 4 * len(SWEEP_PREFETCH_SHOTS))
+            announced = "[vmap] decode-ahead: prefetching group 2/2" in tee.text()
+            if announced != (disable is None) or len(made) != (disable is None) or not all(
+                    pf.consumed for pf in made):
+                raise RuntimeError(f"sweep_prefetch ({mode}): decode-ahead announced "
+                                   f"{announced}, {len(made)} prefetchers, consumed "
+                                   f"{[pf.consumed for pf in made]}")
+            runs[mode] = (_trial_payloads(results), seconds, phases)
+            by_path[f"sweep_prefetch_{mode.replace('-', '_')}"] = launches
+        (seq, seq_s, seq_phases), (ahead, ahead_s, ahead_phases) = (
+            runs["sequential"], runs["decode-ahead"])
+        differ = sorted({f"{key}:{field}" for key in seq for field in seq[key]
+                         if seq[key][field] != ahead[key].get(field)})
+        if set(seq) != set(ahead) or differ:
+            raise RuntimeError(f"sweep_prefetch: metrics.json differs with decode-ahead: "
+                               f"{differ or (sorted(seq), sorted(ahead))}")
+        log(f"[sweep] sweep_prefetch: {len(seq)} trials in 2 groups (shots "
+            f"{SWEEP_PREFETCH_SHOTS}) in {seq_s:.2f} s sequential and {ahead_s:.2f} s "
+            f"with decode-ahead ({seq_s - ahead_s:+.2f} s); every metrics.json equal "
+            f"but {list(WALL_CLOCK_FIELDS)}; phases sequential {json.dumps(seq_phases)}; "
+            f"phases decode-ahead {json.dumps(ahead_phases)}; {smi}")
 
         # (e) the aggregator over the output tree
         plots = []

@@ -25,8 +25,9 @@ from clip_gp_tpu_torch.methods.coop import PromptTrainer
 from clip_gp_tpu_torch.models.clip_model import prompt_tower_dtype
 from clip_gp_tpu_torch.ops.metrics import AverageMeter, compute_accuracy
 
-# Most conditional prompts (images × classes) in one text-tower call, the
-# JAX package's value. It bounds memory, not dispatches: under autograd each
+# Most conditional prompts (images × classes) of one trial in one text-tower
+# call (a trial-batched call carries T times as many), the JAX package's
+# value. It bounds memory, not dispatches: under autograd each
 # chunk (and each sub-slice of a chunk) is a ``torch.utils.checkpoint``
 # segment, so the backward holds one chunk's saved block inputs at a time.
 # Tests may override it.
@@ -60,35 +61,42 @@ def init_meta_net(vis_dim: int, ctx_dim: int, generator=None,
 
 
 def _chunk_logits(model, feats_c, bias_c, ctx, prefix, suffix, eot, k, scale):
-    """[C, K] logits of C images against their K conditional prompts."""
-    c = feats_c.shape[0]
+    """[T, C, K] logits of T trials' C images against their K conditional
+    prompts: feats_c [T, C, D], bias_c [T, C, ctx_dim], ctx [T, n_ctx,
+    ctx_dim]. The T·C·K prompts go through one text-tower call."""
+    t, c = feats_c.shape[:2]
     dim = ctx.shape[-1]
-    ctx_c = (ctx[None, None] + bias_c[:, None, None]).expand(c, k, *ctx.shape)
+    ctx_c = (ctx[:, None, None] + bias_c[:, :, None, None]).expand(
+        t, c, k, *ctx.shape[1:])
     prompts = torch.cat(
-        [prefix[None].expand(c, *prefix.shape), ctx_c,
-         suffix[None].expand(c, *suffix.shape)],
-        dim=2,
-    ).reshape(c * k, -1, dim)
+        [prefix.expand(t, c, *prefix.shape), ctx_c,
+         suffix.expand(t, c, *suffix.shape)],
+        dim=3,
+    ).reshape(t, c * k, -1, dim)
     eot_ck = eot.repeat(c)
     dtype = prompt_tower_dtype()
 
     def tower(p, e):
-        return model.text_features_from_embeddings(p, e, compute_dtype=dtype)
+        # every trial's prompts of this slice in one call: [T·n, L, W]
+        out = model.text_features_from_embeddings(
+            p.reshape(-1, *p.shape[2:]), e.repeat(t), compute_dtype=dtype)
+        return out.reshape(t, p.shape[1], -1)
 
     n = c * k
     sub = max(1, int(PROMPT_BUDGET))
     if n > sub:
         # the image-axis chunk floors at one image, whose k prompts can
         # alone exceed the budget (k > PROMPT_BUDGET: SUN397, ImageNet):
-        # slices of at most `sub` prompts, each its own checkpoint segment
+        # slices of at most `sub` prompts per trial, each its own
+        # checkpoint segment
         text = torch.cat([
-            _segment(tower, prompts[i:i + sub], eot_ck[i:i + sub])
+            _segment(tower, prompts[:, i:i + sub], eot_ck[i:i + sub])
             for i in range(0, n, sub)
-        ])
+        ], dim=1)
     else:
         text = tower(prompts, eot_ck)
-    text = common.l2_normalize(text.reshape(c, k, -1))
-    return scale * torch.einsum("cd,ckd->ck", feats_c, text)
+    text = common.l2_normalize(text.reshape(t, c, k, -1))
+    return scale * torch.einsum("tcd,tckd->tck", feats_c, text)
 
 
 def _segment(fn, *args):
@@ -100,25 +108,41 @@ def _segment(fn, *args):
     return fn(*args)
 
 
-def conditional_logits(model, params, img_feats, prefix, suffix, eot, k, scale):
-    """Per-image conditional-prompt logits: [B, D] normalized image features
-    → [B, K] (ref: trainers/adapter_cocoop.py:70-82). Chunks of C images'
-    K prompts go through one text-tower call each, C·K at most
+def trial_conditional_logits(model, params, img_feats, prefix, suffix, eot, k,
+                             scale):
+    """Per-image conditional-prompt logits of T trials at once: normalized
+    image features [T, B, D] → [T, B, K] (ref:
+    trainers/adapter_cocoop.py:70-82), with every leaf of ``params`` (ctx,
+    meta-net) carrying a leading [T]. Chunks of C images go through one
+    text-tower call for all trials, T·C·K prompts, C·K at most
     ``PROMPT_BUDGET`` (read at call time) unless one image's K prompts
-    alone exceed it."""
-    b = img_feats.shape[0]
+    alone exceed it; each chunk is one checkpoint segment, whose saved
+    inputs are the chunk's features and context biases. The trial axis
+    joins the prompt batch, as ``jax.vmap`` of the JAX package's
+    ``conditional_logits`` batches it."""
+    b = img_feats.shape[1]
     chunk = max(1, min(b, int(PROMPT_BUDGET) // max(k, 1)))
     fc1, fc2 = params["meta_fc1"], params["meta_fc2"]
-    h = torch.relu(img_feats @ fc1["w"] + fc1["b"])
-    bias = h @ fc2["w"] + fc2["b"]  # [B, ctx_dim]
+    h = torch.relu(img_feats @ fc1["w"] + fc1["b"].unsqueeze(-2))
+    bias = h @ fc2["w"] + fc2["b"].unsqueeze(-2)  # [T, B, ctx_dim]
     return torch.cat([
         _segment(
             lambda f, bi, ctx: _chunk_logits(model, f, bi, ctx, prefix, suffix,
                                              eot, k, scale),
-            img_feats[lo:lo + chunk], bias[lo:lo + chunk], params["ctx"],
+            img_feats[:, lo:lo + chunk], bias[:, lo:lo + chunk], params["ctx"],
         )
         for lo in range(0, b, chunk)
-    ])
+    ], dim=1)
+
+
+def conditional_logits(model, params, img_feats, prefix, suffix, eot, k, scale):
+    """One trial's conditional-prompt logits, [B, D] → [B, K]: the T=1 case
+    of ``trial_conditional_logits``."""
+    one = {name: ({n: v[None] for n, v in leaf.items()} if isinstance(leaf, dict)
+                  else leaf[None])
+           for name, leaf in params.items()}
+    return trial_conditional_logits(model, one, img_feats[None], prefix, suffix,
+                                    eot, k, scale)[0]
 
 
 @TRAINER_REGISTRY.register("Adapter-CoCoOp")

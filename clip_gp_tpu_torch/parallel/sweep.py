@@ -18,7 +18,11 @@ Execution backends:
   pins with its own env var).
 - ``vmap``: trials that differ only by seed or by grid values that join the
   trial axis train as one trial-batched program per group
-  (``trial_vmap.py``); the rest run in-process.
+  (``trial_vmap.py``), group after group, each next group's splits and
+  train-union decode started on a host thread while a feature-cached group
+  trains (decode-ahead; ``CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH=1``
+  turns it off, ``CLIP_GP_TPU_TORCH_PREFETCH_BUDGET_MB`` bounds its buffer);
+  the rest run in-process.
 
 Run as ``python -m clip_gp_tpu_torch.parallel.sweep --config-file exp.yaml
 [--backend inprocess|subprocess|vmap]``, or through
@@ -47,8 +51,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
-# the ROADMAP items that bring what this module refuses
-COCOOP_ITEM = "ROADMAP queue 1, item 1 (CoCoOpSpec)"
+# the ROADMAP item that brings what this module refuses
 MULTI_GPU_ITEM = "ROADMAP queue 1, item 2 (multi-GPU placement)"
 
 DATASET_NAME_MAP = {
@@ -341,11 +344,15 @@ def run_trials_vmapped(
     with a counted ``[vmap] ... fallback`` line (the JAX package's
     behaviour); with ``strict`` it raises instead.
 
-    CoCoOp groups take the in-process backend, as the JAX runner's default
-    on one device does; the port follows that default, and the card has not
-    measured the choice. Its trial-batched spec is not ported
-    (``COCOOP_ITEM``), so ``strict`` or ``CLIP_GP_TPU_TORCH_VMAP_COCOOP=1``
-    on a CoCoOp group raises rather than run it in-process unasked.
+    CoCoOp groups take the in-process backend, the JAX runner's default on
+    one device; ``strict`` or ``CLIP_GP_TPU_TORCH_VMAP_COCOOP=1`` trains
+    them on the trial axis.
+
+    Decode-ahead: when a feature-cached group reaches training
+    (``on_before_train``), a ``DecodePrefetcher`` samples the next group's
+    splits and decodes its train union on a host thread, and the next group
+    adopts it. ``CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH=1`` runs the
+    groups strictly one after another; the draws are the same either way.
 
     ``group_parallel`` > 1 and ``trial_mesh`` (several GPUs) raise: they
     are ``MULTI_GPU_ITEM``."""
@@ -355,6 +362,7 @@ def run_trials_vmapped(
             f"GPUs, which the port does not do yet ({MULTI_GPU_ITEM})"
         )
     from clip_gp_tpu_torch.parallel.trial_vmap import (
+        DecodePrefetcher,
         run_vmapped_trials,
         vmappable_config_keys,
     )
@@ -375,17 +383,12 @@ def run_trials_vmapped(
             # head variants the trial-batched runner doesn't model
             leftovers.extend(group)
             continue
-        if method == "Adapter-CoCoOp":
-            if strict or force_cocoop:
-                raise RuntimeError(
-                    f"vmapped group {key}: Adapter-CoCoOp has no trial-batched "
-                    f"spec in the port yet ({COCOOP_ITEM}); drop --strict-vmap "
-                    "and CLIP_GP_TPU_TORCH_VMAP_COCOOP to run it in-process"
-                )
+        if method == "Adapter-CoCoOp" and not strict and not force_cocoop:
             print(
                 f"[vmap] group {key}: Adapter-CoCoOp routes to the in-process "
-                "backend (the JAX runner's one-device default; its "
-                f"trial-batched spec is {COCOOP_ITEM})"
+                "backend on one device (the JAX runner's default); "
+                "--strict-vmap or CLIP_GP_TPU_TORCH_VMAP_COCOOP=1 trains it on "
+                "the trial axis"
             )
             leftovers.extend(group)
             continue
@@ -400,16 +403,52 @@ def run_trials_vmapped(
             d.mkdir(parents=True, exist_ok=True)
         work_items.append((key, group, config, method, seeds, overrides, outdirs))
 
-    for key, group, config, method, seeds, overrides, outdirs in work_items:
+    prefetch_on = (os.environ.get("CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH") != "1"
+                   and len(work_items) > 1)
+    prefetchers: List[Any] = [None] * len(work_items)
+
+    def _starter(i: int):
+        def start() -> None:
+            j = i + 1
+            if not prefetch_on or j >= len(work_items) or prefetchers[j] is not None:
+                return
+            key_j, _, config_j, method_j, seeds_j, overrides_j, _ = work_items[j]
+            try:
+                prefetchers[j] = DecodePrefetcher(config_j, seeds_j,
+                                                  trial_overrides=overrides_j,
+                                                  method=method_j).start()
+            except Exception as e:
+                # the group's own run meets the same error and reports it
+                print(f"[vmap] decode-ahead: group {key_j} not prefetched ({e})")
+                return
+            print(f"[vmap] decode-ahead: prefetching group {j + 1}/{len(work_items)}")
+
+        return start
+
+    for i, (key, group, config, method, seeds, overrides, outdirs) in enumerate(
+            work_items):
+        prefetched = prefetchers[i]
         try:
-            run_vmapped_trials(
-                config, seeds, outdirs, trial_overrides=overrides, method=method,
-            )
+            if prefetched is not None:
+                # adopt the decode-ahead runner: its splits are sampled and
+                # its union decode is under way or done
+                prefetched.runner.on_before_train = _starter(i)
+                prefetched.runner.run(outdirs)
+            else:
+                run_vmapped_trials(
+                    config, seeds, outdirs, trial_overrides=overrides, method=method,
+                    on_before_train=_starter(i),
+                )
         except Exception as e:
             import traceback
 
+            if prefetched is not None:
+                prefetched.cancel()
             traceback.print_exc()
             if strict:
+                for pf in prefetchers:
+                    if pf is not None and not pf.consumed:
+                        pf.cancel()
                 raise RuntimeError(
                     f"vmapped group {key} failed under --strict-vmap"
                 ) from e

@@ -19,8 +19,14 @@ state is small, so the trials train together on a leading trial axis:
    serves).
 
 Heads: the Adapter (baseline trainable weights and GP variants),
-CLIP-Adapter, TaskRes, Tip-Adapter-F and CoOp, with the GP and
-template-weight pre-stages of the three feature-cached heads.
+CLIP-Adapter, TaskRes, Tip-Adapter-F, CoOp and CoCoOp, with the GP and
+template-weight pre-stages of the three feature-cached heads. A step whose
+spec asks for image micro-slices (``microbatch_images``, CoCoOp's prompt
+budget) accumulates their gradients before one update.
+
+Decode-ahead (``DecodePrefetcher``): while one group trains, the sweep's
+sequential path samples the next group's splits and decodes its train
+union on a host thread; the next group's run adopts that runner.
 
 What the JAX runner has and this one does not, and why:
 
@@ -36,9 +42,8 @@ What the JAX runner has and this one does not, and why:
   so "the in-process jit cache and the persistent compile cache actually
   hit"), and its outputs are top-1-exact against the unpadded run. Eager
   PyTorch compiles nothing per shape, so padding would only add compute.
-- Not yet (ROADMAP queue 1): CoCoOp's spec and ``DecodePrefetcher``
-  (item 1), the trial axis split over several GPUs (``--trial-mesh``,
-  item 2).
+- Not yet (ROADMAP queue 1, item 2): the trial axis split over several
+  GPUs (``--trial-mesh``).
 
 Randomness: each trial's GP noise comes from its own ``torch.Generator``
 (``TrialDraws``), and the runner takes any ``draws`` callable in its place,
@@ -52,6 +57,7 @@ turns a JAX trial-stacked tree into one).
 from __future__ import annotations
 
 import copy
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -74,6 +80,7 @@ from clip_gp_tpu_torch.parallel.trial_specs import (  # noqa: F401  (re-exported
     MethodSpec,
     TrialGP,
     TrialOptimizer,
+    _divisor_le,
     stack_trees,
     tree_leaves,
     tree_map,
@@ -155,6 +162,12 @@ class VmappedTrials:
         self.device = resolve_device(device)
         self.initial_state = initial_state
         self.draws = draws if draws is not None else TrialDraws(self.seeds, self.device)
+        # decode-ahead hooks of the sweep's sequential path: a
+        # DecodePrefetcher whose splits and union decode this run adopts,
+        # and a callback fired once the rest of the run decodes no image
+        # (the sweep starts the next group's decode from it)
+        self._prefetch: Optional["DecodePrefetcher"] = None
+        self.on_before_train: Optional[Callable[[], None]] = None
         # group-private augmentation stream: loader item seeds never touch
         # the process-global `random` (the JAX runner's stream, same draws)
         import random as _random
@@ -213,21 +226,23 @@ class VmappedTrials:
         return train_union, train_idx, train_lab, val_union, val_idx, val_lab, dm
 
     def _encode_union(self, base, union_items, dm, normalize: bool,
-                      train: bool = True) -> torch.Tensor:
+                      train: bool = True, loader=None) -> torch.Tensor:
         """Encode a union of datums once for all trials: the train transform
         (random augmentation from the group stream) or, for val, the
-        deterministic eval transform."""
+        deterministic eval transform. ``loader`` (a prefetcher's) replaces
+        the union's own loader."""
         from clip_gp_tpu_torch.data.pipeline import BatchLoader
 
-        loader = BatchLoader(
-            union_items,
-            dm.tfm_train if train else dm.tfm_test,
-            self.config.dataloader.batch_size_train,
-            shuffle=False,
-            drop_last=False,
-            num_workers=self.config.dataloader.num_workers,
-            rng=self._aug_rng,
-        )
+        if loader is None:
+            loader = BatchLoader(
+                union_items,
+                dm.tfm_train if train else dm.tfm_test,
+                self.config.dataloader.batch_size_train,
+                shuffle=False,
+                drop_last=False,
+                num_workers=self.config.dataloader.num_workers,
+                rng=self._aug_rng,
+            )
         _, feats = base.encode_images_batched(loader)
         feats = torch.from_numpy(feats).to(self.device)
         return common.l2_normalize(feats) if normalize else feats
@@ -250,9 +265,14 @@ class VmappedTrials:
         spec_cls = SPECS[self.method]
 
         with phase_timer("vmap.splits", device=dev):
-            (union_items, seed_index, seed_labels,
-             val_union, val_index, val_labels, dm) = self._build_per_seed_splits(
-                needs_val=spec_cls.needs_val)
+            if self._prefetch is not None:
+                # sampled (and maybe decoded) by the prefetcher's thread
+                # while the previous group trained
+                splits = self._prefetch.wait_splits()
+            else:
+                splits = self._build_per_seed_splits(needs_val=spec_cls.needs_val)
+        (union_items, seed_index, seed_labels,
+         val_union, val_index, val_labels, dm) = splits
         self.dm = dm
         # eval transforms never use the rng, but loader iteration may draw
         # item seeds: keep those off the global stream too
@@ -270,12 +290,19 @@ class VmappedTrials:
         self.logit_scale = float(np.exp(self.clip_model.logit_scale.item()))
         self.k, self.m, self.d = (int(s) for s in self.text_embeddings.shape)
 
-        spec = spec_cls(self)
+        spec = self.spec = spec_cls(self)
 
         # one frozen-tower pass over the union of all trials' few-shot images
         train_idx = torch.from_numpy(seed_index).to(dev)
         with phase_timer("vmap.union_encode", device=dev):
-            union_feats = self._encode_union(base, union_items, dm, spec.normalize_features)
+            # a prefetcher's stream holds the same batches, in the same
+            # order, from the same augmentation draws
+            prefetched = None if self._prefetch is None else _PrefetchedLoader(
+                self._prefetch, union_items, config.dataloader.batch_size_train)
+            union_feats = self._encode_union(base, union_items, dm,
+                                             spec.normalize_features, loader=prefetched)
+            if self._prefetch is not None:
+                self._prefetch.consumed = True
         with phase_timer("vmap.test_encode", device=dev):
             labels_test, feats_test = base.encode_images_batched(dm.test_loader,
                                                                  cacheable=True)
@@ -293,6 +320,12 @@ class VmappedTrials:
                                                  spec.normalize_features, train=False)
             feats_val = val_feats_union[torch.from_numpy(val_index).to(dev)]
             labels_val = torch.from_numpy(val_labels).to(dev)
+
+        if self.on_before_train is not None and not spec.reencode_per_epoch:
+            # a feature-cached head decodes no image from here on, so the
+            # next group's decode can start; a re-encoding head decodes
+            # every epoch, and two decodes would contend for the host
+            self.on_before_train()
 
         params = self._initial_params(spec)
         with phase_timer("vmap.consts_prestage", device=dev):
@@ -340,10 +373,22 @@ class VmappedTrials:
                     facs = spec.lr_factors(epoch, b, n_batches)
                     lrs = {g: lr_vecs[g] * torch.from_numpy(np.asarray(facs[g])).to(dev)
                            for g in facs}
-                    losses = spec.loss(
-                        params, consts, feats_e[:, lo:hi], labels_e[:, lo:hi],
-                        lambda shape, i=step: self.draws("train", i, shape), hps)
-                    losses.sum().backward()
+                    mb = _divisor_le(hi - lo, spec.microbatch_images(hi - lo))
+                    if mb < hi - lo and epoch == 0 and b == 0:
+                        print(f"[vmap-trials:{self.method}] gradient accumulation: "
+                              f"{mb} images per backward (batch {hi - lo})")
+                    # Σ (n_i/B)·grad_i over the micro-slices is the step's
+                    # batch-mean gradient; one slice when mb is the batch
+                    losses = 0.0
+                    for m_lo in range(lo, hi, mb):
+                        m_hi = min(hi, m_lo + mb)
+                        part = spec.loss(
+                            params, consts, feats_e[:, m_lo:m_hi], labels_e[:, m_lo:m_hi],
+                            lambda shape, i=step: self.draws("train", i, shape), hps)
+                        if mb < hi - lo:
+                            part = part * ((m_hi - m_lo) / (hi - lo))
+                        part.sum().backward()
+                        losses = losses + part.detach()
                     opt.step([(leaf, lrs[g]) for leaf, g in groups])
                     step += 1
             with phase_timer("vmap.train.epoch_end", device=dev):
@@ -420,6 +465,135 @@ class VmappedTrials:
         return result
 
 
+class DecodePrefetcher:
+    """Decode-ahead for the sweep's sequential path: while group g trains,
+    a producer thread samples group g+1's few-shot splits and decodes its
+    train union, so the host's decode overlaps the card's work. One group
+    decodes ahead at a time.
+
+    The draws are the run's without it: the splits are sampled inside the
+    same ``_SPLIT_RNG_LOCK`` window by the runner's own
+    ``_build_per_seed_splits``, the union loader draws its item seeds from
+    the runner's group-private ``_aug_rng``, and the real run adopts this
+    prefetcher's runner (data manager, stream and all). The buffer is
+    bounded in bytes (``CLIP_GP_TPU_TORCH_PREFETCH_BUDGET_MB``, default 512;
+    it always admits one batch), so a large union streams. A producer error
+    is raised again in the consumer, by ``wait_splits`` or ``batches``.
+
+    The producer competes with the training thread for the interpreter lock
+    where it runs Python; Pillow releases it while it decodes."""
+
+    def __init__(self, config, seeds, trial_overrides=None, method=None, **kwargs):
+        self.runner = VmappedTrials(config, seeds, trial_overrides=trial_overrides,
+                                    method=method, **kwargs)
+        self.runner._prefetch = self
+        self._budget = int(os.environ.get("CLIP_GP_TPU_TORCH_PREFETCH_BUDGET_MB",
+                                          "512")) * (1 << 20)
+        self._batches: List[Dict] = []
+        self._bytes = 0
+        self._cv = threading.Condition()
+        self._splits = None
+        self._done = False
+        self._cancelled = False
+        self._error: Optional[BaseException] = None
+        self.consumed = False
+        self._thread = threading.Thread(target=self._produce, name="decode-prefetch",
+                                        daemon=True)
+
+    def start(self) -> "DecodePrefetcher":
+        self._thread.start()
+        return self
+
+    # -- producer ---------------------------------------------------------
+    def _produce(self) -> None:
+        from clip_gp_tpu_torch.data.pipeline import BatchLoader
+
+        try:
+            r = self.runner
+            splits = r._build_per_seed_splits(needs_val=SPECS[r.method].needs_val)
+            with self._cv:
+                self._splits = splits
+                self._cv.notify_all()
+            union_items, dm = splits[0], splits[6]
+            loader = BatchLoader(
+                union_items, dm.tfm_train, r.config.dataloader.batch_size_train,
+                shuffle=False, drop_last=False,
+                num_workers=r.config.dataloader.num_workers, rng=r._aug_rng)
+            for batch in loader:
+                nbytes = int(batch["img"].nbytes)
+                with self._cv:
+                    while (self._batches and self._bytes + nbytes > self._budget
+                           and not self._cancelled):
+                        self._cv.wait(0.5)
+                    if self._cancelled:
+                        return
+                    self._batches.append(batch)
+                    self._bytes += nbytes
+                    self._cv.notify_all()
+        except BaseException as e:
+            # raised again in the consumer; an exit or interrupt ends the
+            # thread too
+            with self._cv:
+                self._error = e
+                self._cv.notify_all()
+            if not isinstance(e, Exception):
+                raise
+        finally:
+            with self._cv:
+                self._done = True
+                self._cv.notify_all()
+
+    # -- consumer (VmappedTrials.run) --------------------------------------
+    def wait_splits(self):
+        with self._cv:
+            while self._splits is None and self._error is None:
+                self._cv.wait(0.5)
+            if self._splits is None:
+                raise self._error
+            return self._splits
+
+    def batches(self):
+        """The union loader's batches in order, from the bounded buffer
+        (the producer keeps decoding while the consumer encodes)."""
+        while True:
+            with self._cv:
+                while not self._batches and not self._done:
+                    self._cv.wait(0.5)
+                if self._error is not None:
+                    raise self._error
+                if not self._batches:
+                    return
+                batch = self._batches.pop(0)
+                self._bytes -= int(batch["img"].nbytes)
+                self._cv.notify_all()
+            yield batch
+
+    def cancel(self) -> None:
+        """Discard an unconsumed prefetch (its group failed or the sweep
+        stopped) and let the producer end."""
+        with self._cv:
+            self._cancelled = True
+            self._batches.clear()
+            self._bytes = 0
+            self._cv.notify_all()
+
+
+class _PrefetchedLoader:
+    """A loader over a DecodePrefetcher's batches, so
+    ``encode_images_batched`` consumes them as it consumes a BatchLoader."""
+
+    def __init__(self, prefetcher: DecodePrefetcher, data_source, batch_size: int):
+        self._pf = prefetcher
+        self.data_source = data_source
+        self.batch_size = batch_size
+
+    def __len__(self) -> int:
+        return -(-len(self.data_source) // self.batch_size)
+
+    def __iter__(self):
+        return self._pf.batches()
+
+
 def run_seed_vmapped_adapter(config, seeds: Sequence[int], trial_outdirs=None,
                              trial_overrides=None, **kwargs):
     """``run_vmapped_trials`` with ``method="Adapter"``, kept so that the JAX
@@ -430,9 +604,13 @@ def run_seed_vmapped_adapter(config, seeds: Sequence[int], trial_outdirs=None,
 
 
 def run_vmapped_trials(config, seeds: Sequence[int], trial_outdirs=None,
-                       trial_overrides=None, method=None, **kwargs):
+                       trial_overrides=None, method=None, on_before_train=None,
+                       **kwargs):
     """Train the trials of one group at once and write each trial's
-    metrics.json under ``trial_outdirs``; ``kwargs`` go to ``VmappedTrials``
+    metrics.json under ``trial_outdirs``; ``on_before_train`` is the
+    runner's decode-ahead hook, ``kwargs`` go to ``VmappedTrials``
     (``device``, ``initial_state``, ``draws``)."""
-    return VmappedTrials(config, seeds, trial_overrides=trial_overrides,
-                         method=method, **kwargs).run(trial_outdirs)
+    runner = VmappedTrials(config, seeds, trial_overrides=trial_overrides,
+                           method=method, **kwargs)
+    runner.on_before_train = on_before_train
+    return runner.run(trial_outdirs)

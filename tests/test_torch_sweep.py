@@ -3,7 +3,9 @@ JAX package's: the trial expansion (trials, signatures, outdirs, argv, the
 unknown-key and merge warnings, skip-if-logged) and the vmap backend's
 grouping on the experiment YAMLs of ``tests/test_sweep_and_aggregate.py``;
 then the port alone: fallback counting and ``--strict-vmap``, CoCoOp's
-routing, the subprocess backend's ``--launcher`` prefix and GPU pinning,
+routing (in-process by default, on the trial axis under ``--strict-vmap``
+or ``CLIP_GP_TPU_TORCH_VMAP_COCOOP=1``) and a CoCoOp sweep on the trial
+axis, the subprocess backend's ``--launcher`` prefix and GPU pinning,
 and one small sweep end to end on the CPU (vmap, then in-process on one of
 its trials: top-1 equal, metrics within 1e-3)."""
 
@@ -132,6 +134,8 @@ GROUPINGS = {
     # the uniform baseline trains nothing on the trial axis: in-process
     "uniform-baseline": ("Adapter", {}, "TRAIN_TEMPLATE_WEIGHTS: False\n"),
     "coop-lr": ("Adapter-CoOp", {"OPTIM.LR": [0.002, 0.02]}, ""),
+    # under --strict-vmap CoCoOp trains on the trial axis in both packages
+    "cocoop-lr": ("Adapter-CoCoOp", {"OPTIM.LR": [0.002, 0.02]}, ""),
 }
 
 
@@ -181,18 +185,59 @@ def test_fallback_counting_and_strict_vmap(tmp_path, capsys, monkeypatch):
 
 
 def test_cocoop_groups_route_inprocess_or_raise(tmp_path, capsys, monkeypatch):
+    """The JAX runner's one-device routing (``tests/test_sweep_cocoop_routing.py``):
+    a CoCoOp group runs in-process by default, and on the trial axis under
+    ``strict`` or ``CLIP_GP_TPU_TORCH_VMAP_COCOOP=1`` (a spy on
+    ``run_vmapped_trials`` records the group)."""
     cfg = _sweep_cfg(tmp_path, "Adapter-CoCoOp", {}, shots=(2,))
     trials, _ = tsweep.build_trials(cfg)
-    ran = []
+    ran, vmapped = [], []
     monkeypatch.setattr(tsweep, "run_trials_inprocess", lambda ts: ran.extend(ts) or [])
+
+    def spy(config, seeds, outdirs, trial_overrides=None, method=None, **kwargs):
+        vmapped.append((method, list(seeds)))
+        return []
+
+    monkeypatch.setattr(ttv, "run_vmapped_trials", spy)
+    monkeypatch.delenv("CLIP_GP_TPU_TORCH_VMAP_COCOOP", raising=False)
     tsweep.run_trials_vmapped(trials)
-    assert "Adapter-CoCoOp routes to the in-process backend" in capsys.readouterr().out
-    assert len(ran) == 2
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1, item 1"):
-        tsweep.run_trials_vmapped(trials, strict=True)
-    monkeypatch.setenv("CLIP_GP_TPU_TORCH_VMAP_COCOOP", "1")
-    with pytest.raises(RuntimeError, match="CoCoOpSpec"):
-        tsweep.run_trials_vmapped(trials)
+    out = capsys.readouterr().out
+    assert "Adapter-CoCoOp routes to the in-process backend" in out
+    assert len(ran) == 2 and vmapped == []
+    for strict, env in ((True, None), (False, "1")):
+        ran.clear()
+        vmapped.clear()
+        if env:
+            monkeypatch.setenv("CLIP_GP_TPU_TORCH_VMAP_COCOOP", env)
+        results = tsweep.run_trials_vmapped(trials, strict=strict)
+        out = capsys.readouterr().out
+        assert "routes to the in-process backend" not in out
+        assert ran == [] and vmapped == [("Adapter-CoCoOp", [1, 2])]
+        assert [r["backend"] for r in results] == ["vmap", "vmap"]
+        assert out.count("[vmap] OK method=Adapter-CoCoOp") == 2
+
+
+def test_cocoop_sweep_trains_on_the_trial_axis(tmp_path, monkeypatch):
+    """``--backend vmap --strict-vmap`` on a CoCoOp experiment: one
+    trial-batched group writes both trials' metrics.json, with the JAX
+    runner's ``zero_shot: null``."""
+    import yaml
+
+    monkeypatch.setenv("CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS", "1")
+    monkeypatch.setenv("CLIP_GP_TPU_TORCH_FORCE_CPU", "1")
+    cfg = _sweep_cfg(tmp_path, "Adapter-CoCoOp", {}, shots=(1,))
+    # one YAML holds the experiment and, as uppercase keys, the trainer
+    spec = yaml.safe_load(Path(cfg.pop("__config_file__")).read_text())
+    spec.update(cfg)
+    path = tmp_path / "cocoop_exp.yaml"
+    path.write_text(yaml.safe_dump(spec))
+    results = tsweep.main(["--config-file", str(path), "--backend", "vmap",
+                           "--strict-vmap"])
+    assert [r["backend"] for r in results] == ["vmap", "vmap"]
+    for r in results:
+        payload = json.loads((Path(r["out_dir"]) / "metrics.json").read_text())
+        assert payload["method"] == "cocoop" and payload["zero_shot"] is None
+        assert payload["metrics"]["top1_acc"] == payload["metrics"]["top1_acc"]
 
 
 def test_multi_gpu_options_raise(tmp_path):
