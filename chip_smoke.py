@@ -160,10 +160,27 @@ exits non-zero before printing any result. Phases, each raising on failure:
    ``sweep_inprocess``, ``sweep_prefetch_sequential``,
    ``sweep_prefetch_decode_ahead`` and the ``*_trial`` runs; the child
    process's launches are counted in the child);
-12. output: one ``{"kernels": [...]}`` line, then as the last line
+12. native decode and multi-device placement: ``[native]``: whether the
+   port's C++ JPEG decode (``clip_gp_tpu_torch/native``) built, and why
+   not; where it did, 16 generated JPEGs decoded natively and through PIL
+   (mean absolute difference under 4.0) and a short CLI run over a
+   Synthetic JPEG tree with ``CLIP_GP_TPU_TORCH_NATIVE_DECODE=1``.
+   ``[multi-gpu]``: the device count, then two GP groups (the GP trainer's
+   config at 1 and 2 shots on the 4-class tree, T=4) through
+   ``sweep.main --backend vmap`` one after another, with
+   ``--group-parallel 2`` and with ``--trial-mesh auto``: every
+   metrics.json field but the wall clock equal to the sequential run's, and
+   the K1/K2 launches too (paths ``multi_sequential``,
+   ``multi_group_parallel``, ``multi_trial_mesh_auto``); with two or more
+   devices also the sharded extraction against one device's
+   (MESH_ENCODE_TOL), ``--trial-mesh 2`` against the sequential run (top-1
+   equal, SWEEP_METRIC_TOL; path ``multi_trial_mesh_2``) and K1 launched
+   from a thread whose current device is another; with one device the
+   line says which of these did not run and why;
+13. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11 sets the launch counts to 0 just before each run it
+Each of phases 4-12 sets the launch counts to 0 just before each run it
 drives and reads them just after; a kernel's ``launches`` in the JSON line is
 the sum over those runs, and ``launches_by_path`` gives each.
 """
@@ -3402,6 +3419,269 @@ def phase_sweep(smi, backbone="ViT-B/16"):
     return by_path
 
 
+# phase 12: the sharded extraction against one device's, on ViT-B/16
+MESH_ENCODE_TOL = 5e-5
+# the native decode against PIL on generated JPEGs (tests/test_native_decode.py)
+NATIVE_PIL_TOL = 4.0
+
+
+def _native_check(smi, backbone):
+    """``[native]``: the port's C++ JPEG decode, where it builds."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_gp_tpu_torch.data.transforms import center_crop, resize_shortest
+    from clip_gp_tpu_torch.native import loader as native
+
+    available = native.native_available()
+    reason = native.unavailable_reason() or "none"
+    reason = " | ".join(line.strip() for line in reason.splitlines() if line.strip())
+    log(f"[native] available={available} reason={reason[-400:]!r}; {smi}")
+    if not available:
+        log("[native] not run: the 16-JPEG check against PIL and the CLI run with "
+            "CLIP_GP_TPU_TORCH_NATIVE_DECODE=1 need the library; every image takes "
+            "the Pillow path, as in the JAX package on such a host")
+        return {}
+    rng = np.random.default_rng(0)
+    diffs, t_native, t_pil = [], 0.0, 0.0
+    for i in range(16):
+        w, h = int(rng.integers(240, 640)), int(rng.integers(240, 640))
+        x = rng.normal(size=(h // 8 + 1, w // 8 + 1, 3))
+        img = np.kron(x, np.ones((8, 8, 1)))[:h, :w]
+        img = ((img - img.min()) / (np.ptp(img) + 1e-9) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=95)
+        jpeg = buf.getvalue()
+        start = time.perf_counter()
+        ours = native.decode_resize_crop(jpeg, 224)
+        t_native += time.perf_counter() - start
+        start = time.perf_counter()
+        ref = center_crop(resize_shortest(Image.open(io.BytesIO(jpeg)).convert("RGB"),
+                                          224, Image.BICUBIC), (224, 224))
+        ref = np.asarray(ref, dtype=np.uint8)
+        t_pil += time.perf_counter() - start
+        if ours is None:
+            raise RuntimeError(f"[native] JPEG {i} ({w}x{h}) did not decode")
+        diffs.append(float(np.abs(ours.astype(np.int16) - ref.astype(np.int16)).mean()))
+    if max(diffs) >= NATIVE_PIL_TOL:
+        raise RuntimeError(f"[native] mean |native - PIL| {max(diffs)} >= {NATIVE_PIL_TOL}")
+    log(f"[native] 16 JPEGs at 224: mean |native - PIL| at most {max(diffs):.3f} "
+        f"(limit {NATIVE_PIL_TOL}); native {1e3 * t_native / 16:.3f} ms and PIL "
+        f"{1e3 * t_pil / 16:.3f} ms per image on the host; {smi}")
+
+    import clip_gp_tpu_torch.native as native_pkg
+    from clip_gp_tpu_torch import train as train_main
+    from clip_gp_tpu_torch.data import pipeline
+    from clip_gp_tpu_torch.data.datasets.synthetic import generate_synthetic_imagefolder
+    from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+
+    res = ARCHITECTURES[backbone].image_resolution
+    calls = []
+    real = native_pkg.decode_resize_crop
+
+    def counted(data, target):
+        calls.append(target)
+        return real(data, target)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_synthetic_imagefolder(tmp, fmt="jpg")
+        os.environ["CLIP_GP_TPU_TORCH_NATIVE_DECODE"] = "1"
+        _reset_counts()
+        try:
+            with mock.patch.object(pipeline, "_USE_NATIVE", True), \
+                    mock.patch.object(native_pkg, "decode_resize_crop", counted):
+                train_main.main([
+                    "--dataset", "Synthetic", "--root", tmp, "--shots", "2",
+                    "--backbone", backbone, "--seed", "1",
+                    "--output-dir", os.path.join(tmp, "run"), "--batch-size", "8",
+                    "--num-templates", "2", "INPUT.SIZE", f"({res}, {res})",
+                    "INPUT.TRANSFORMS", "['normalize']",
+                    "TRAINER.ADAPTER.CLIP_ADAPTER_EPOCHS", "1",
+                    "DATALOADER.NUM_WORKERS", "2"])
+        finally:
+            os.environ.pop("CLIP_GP_TPU_TORCH_NATIVE_DECODE", None)
+        launches = _counts()
+        with open(os.path.join(tmp, "run", "metrics.json")) as f:
+            metrics = json.load(f)["metrics"]
+    if not calls or not math.isfinite(metrics["top1_acc"]):
+        raise RuntimeError(f"[native] CLI run: {len(calls)} native decodes, {metrics}")
+    log(f"[native] CLI run on a Synthetic JPEG tree with "
+        f"CLIP_GP_TPU_TORCH_NATIVE_DECODE=1: {len(calls)} images decoded natively, "
+        f"top-1 {metrics['top1_acc']:.2f}; {smi}")
+    return {"native_cli": launches}
+
+
+def _cross_device_k1(devices):
+    """K1 from a thread whose current device is ``devices[0]``, on tensors
+    of ``devices[1]``, against its plain version there: the largest error."""
+    import threading
+
+    import torch
+
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(0)
+    b, n, d, heads = 3, 77, 512, 8
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(devices[1])
+
+    args = (rnd(b, n, d), 1 + 0.1 * rnd(d), 0.1 * rnd(d), rnd(d, 3 * d, scale=d**-0.5),
+            0.1 * rnd(3 * d), rnd(d, d, scale=d**-0.5), 0.1 * rnd(d), heads, None)
+    out = {}
+
+    def run():
+        torch.cuda.set_device(devices[0])
+        with torch.no_grad():
+            out["k1"] = fa.fused_ln_attention_block(*args)
+        torch.cuda.synchronize(devices[1])
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "k1" not in out or out["k1"].device != devices[1]:
+        raise RuntimeError(f"cross-device K1: no output on {devices[1]}")
+    with torch.no_grad():
+        ref = fa.ln_attention_block_plain(*args)
+    return float((out["k1"] - ref).abs().max())
+
+
+def phase_multi(smi, backbone="ViT-B/16"):
+    """Phase 12: the native JPEG decode, then multi-device placement through
+    the sweep (``--group-parallel``, ``--trial-mesh``) and, with two or more
+    devices, the sharded extraction and a cross-device launch. Returns the
+    launches of each run in this process."""
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from clip_gp_tpu_torch.core.device import local_devices
+    from clip_gp_tpu_torch.data.datasets.synthetic import generate_synthetic_imagefolder
+
+    os.environ["CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS"] = "1"
+    by_path = _native_check(smi, backbone)
+    devices = local_devices()
+    log(f"[multi-gpu] devices={len(devices)}; {smi}")
+    k1, k2 = "fused_ln_attention_block", "fused_ln_mlp"
+    with tempfile.TemporaryDirectory() as tmp:
+        small, out = os.path.join(tmp, "small"), os.path.join(tmp, "out")
+        generate_synthetic_imagefolder(small)
+        gp = dict(TRAINER={"ADAPTER": {"CLIP_ADAPTER_EPOCHS": 10}})
+        path = _experiment_yaml(os.path.join(tmp, "multi.yaml"), "gp.yaml", small, out,
+                                "multi", backbone, SWEEP_SEEDS, SWEEP_PREFETCH_SHOTS, {},
+                                **gp)
+        runs = {}
+        # in turns, so that neither schedule alone pays a first run's cost
+        for name, flags in (("sequential", ["--group-parallel", "1"]),
+                            ("group_parallel", ["--group-parallel", "2"]),
+                            ("trial_mesh_auto", ["--trial-mesh", "auto"]),
+                            ("trial_mesh_2", ["--trial-mesh", "2"]),
+                            ("group_parallel_again", ["--group-parallel", "2"]),
+                            ("sequential_again", ["--group-parallel", "1"])):
+            if name == "trial_mesh_2" and len(devices) < 2:
+                continue
+            tee = _Tee(sys.stdout)
+            with redirect_stdout(tee):
+                results, launches, phases, seconds = _sweep_run(
+                    path, "--backend", "vmap", "--strict-vmap", "--no-skip-logged",
+                    *flags)
+            _vmapped(f"multi ({name})", results, 4 * len(SWEEP_PREFETCH_SHOTS))
+            runs[name] = (_trial_payloads(results), launches, seconds, tee.text())
+            by_path[f"multi_{name}"] = launches
+        seq, seq_launches, seq_s, _ = runs["sequential"]
+        # one device: --trial-mesh auto runs unsharded, so equal bit for bit;
+        # on several it shards, and is held to the sequential run as
+        # --trial-mesh 2 is, below
+        exact = ["group_parallel", "group_parallel_again", "sequential_again"] + (
+            ["trial_mesh_auto"] if len(devices) == 1 else [])
+        for name in list(runs)[1:]:
+            if name not in runs:
+                continue
+            payloads, launches, seconds, text = runs[name]
+            differ = sorted({f"{key}:{field}" for key in seq for field in seq[key]
+                             if seq[key][field] != payloads.get(key, {}).get(field)})
+            if name in exact and (set(seq) != set(payloads) or differ):
+                raise RuntimeError(f"multi ({name}): metrics.json differs from the "
+                                   f"sequential run: {differ}")
+            if (launches[k1], launches[k2]) != (seq_launches[k1], seq_launches[k2]):
+                raise RuntimeError(f"multi ({name}): K1/K2 {launches[k1]}/{launches[k2]} "
+                                   f"against {seq_launches[k1]}/{seq_launches[k2]} "
+                                   "sequential")
+        gp_text = runs["group_parallel"][3]
+        want = (f"scheduling 2 trial group(s) over 2 worker(s) / {len(devices)} "
+                "device(s)")
+        if want not in gp_text:
+            raise RuntimeError(f"multi (group_parallel): no '{want}' line")
+        mesh_text = runs["trial_mesh_auto"][3]
+        if len(devices) == 1 and "running unsharded" not in mesh_text:
+            raise RuntimeError("multi (trial_mesh_auto): no 'running unsharded' line")
+        seq2_s, gp_s, gp2_s, mesh_s = (runs[n][2] for n in (
+            "sequential_again", "group_parallel", "group_parallel_again",
+            "trial_mesh_auto"))
+        log(f"[multi-gpu] {len(seq)} trials in 2 GP groups (shots "
+            f"{SWEEP_PREFETCH_SHOTS}, T=4), in turns: one after another {seq_s:.2f} "
+            f"and {seq2_s:.2f} s, --group-parallel 2 {gp_s:.2f} and {gp2_s:.2f} s "
+            f"({(gp_s + gp2_s) / (seq_s + seq2_s):.3f}x), --trial-mesh auto "
+            f"{mesh_s:.2f} s; metrics.json equal to the first sequential run's but "
+            f"{list(WALL_CLOCK_FIELDS)} in {sorted(exact)}; K1/K2 "
+            f"{seq_launches[k1]}/{seq_launches[k2]} in each run; {smi}")
+        for name in ("trial_mesh_auto", "trial_mesh_2") if len(devices) >= 2 else ():
+            payloads = runs[name][0]
+            worst = 0.0
+            for key, want_p in seq.items():
+                got, ref = payloads[key]["metrics"], want_p["metrics"]
+                if got["top1_acc"] != ref["top1_acc"]:
+                    raise RuntimeError(f"multi ({name}): top-1 {got['top1_acc']} "
+                                       f"against {ref['top1_acc']} unsharded ({key})")
+                worst = max([worst] + [abs(got[m] - ref[m])
+                                       for m in ("ece", "aece", "macro_f1")])
+            if worst > SWEEP_METRIC_TOL:
+                raise RuntimeError(f"multi ({name}): metrics off by {worst}")
+            log(f"[multi-gpu] {name}: top-1 equal to the sequential run, metrics "
+                f"within {worst:.3g}; {runs[name][2]:.2f} s; {smi}")
+    if len(devices) >= 2:
+        from clip_gp_tpu_torch.data.transforms import device_preprocess
+        from clip_gp_tpu_torch.models.clip_loader import init_clip_params
+        from clip_gp_tpu_torch.models.clip_model import ARCHITECTURES
+        from clip_gp_tpu_torch.parallel.mesh import maybe_sharded_encode
+
+        arch = ARCHITECTURES[backbone]
+        model = init_clip_params(arch, seed=0, device=devices[0])
+        res = arch.image_resolution
+        images = np.random.default_rng(0).integers(0, 256, size=(33, res, res, 3),
+                                                   dtype=np.uint8)
+
+        def encode_on(visual, u8):
+            with torch.no_grad():
+                return visual(device_preprocess(u8)).float()
+
+        sharded = maybe_sharded_encode(encode_on, model.visual, devices=devices)
+        got = sharded(images)
+        with torch.no_grad():
+            want = model.encode_image(device_preprocess(
+                torch.from_numpy(images).to(devices[0])))
+        err = float((got - want).abs().max())
+        if err > MESH_ENCODE_TOL:
+            raise RuntimeError(f"sharded extraction off by {err} > {MESH_ENCODE_TOL}")
+        k1_err = _cross_device_k1(devices)
+        if k1_err > 1e-4:
+            raise RuntimeError(f"cross-device K1 off by {k1_err}")
+        log(f"[multi-gpu] sharded extraction of 33 images over {len(devices)} devices "
+            f"against one device: max |diff| {err:.3g} (limit {MESH_ENCODE_TOL}); K1 "
+            f"from a thread on {devices[0]} for tensors on {devices[1]}: max |diff| "
+            f"{k1_err:.3g} against its plain version; {smi}")
+    else:
+        log("[multi-gpu] not run with one device: the sharded extraction, "
+            "--trial-mesh 2 and the cross-device K1 launch each need a second "
+            "device; --group-parallel 2 ran two co-resident groups on the one "
+            "device and --trial-mesh auto ran each group unsharded")
+    torch.cuda.synchronize()
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3437,6 +3717,7 @@ def main() -> int:
     by_path["vit_clip_adapter"] = phase_vit_clip_adapter()
     by_path.update(phase_single_trial())
     by_path.update(phase_sweep(smi))
+    by_path.update(phase_multi(smi))
     for cell in cells:
         counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())

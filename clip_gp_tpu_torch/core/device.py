@@ -3,15 +3,59 @@
 ``resolve_device()`` returns ``cuda`` when a GPU is present, ``cpu`` when
 ``CLIP_GP_TPU_TORCH_FORCE_CPU=1`` is set (the counterpart of the JAX
 package's ``CLIP_GP_TPU_FORCE_CPU``; the tests set it), and raises otherwise:
-the port never carries on silently on the CPU. An explicit ``device`` wins.
+the port never carries on silently on the CPU. An explicit ``device`` wins,
+then a device pinned to the calling thread with ``pinned_device`` (the
+sweep's group-parallel workers: a trainer built in a worker lands on its
+device without being told).
+
+``local_devices()`` lists the devices a multi-device path spreads over: the
+CUDA devices, or the one CPU under ``CLIP_GP_TPU_TORCH_FORCE_CPU=1``; none
+on a host with neither, where ``resolve_device`` raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional, Union
+import threading
+from typing import Iterator, List, Optional, Union
 
 import torch
+
+_PIN = threading.local()
+
+
+def local_devices() -> List[torch.device]:
+    """The devices of this process: ``[cpu]`` when the caller asks for the
+    CPU, else every CUDA device (none without a GPU: a caller that runs
+    anything resolves its device, and that raises)."""
+    if os.environ.get("CLIP_GP_TPU_TORCH_FORCE_CPU") == "1":
+        return [torch.device("cpu")]
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return []
+
+
+def pinned() -> Optional[torch.device]:
+    """The device pinned to the calling thread, or None."""
+    return getattr(_PIN, "device", None)
+
+
+@contextlib.contextmanager
+def pinned_device(device: Union[str, torch.device]) -> Iterator[torch.device]:
+    """Pin ``device`` to the calling thread: inside, ``resolve_device(None)``
+    returns it, and a CUDA device is the thread's current device. Nests."""
+    device = torch.device(device)
+    prev = pinned()
+    _PIN.device = device
+    try:
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                yield device
+        else:
+            yield device
+    finally:
+        _PIN.device = prev
 
 
 def configure_cuda_numerics() -> None:
@@ -23,6 +67,8 @@ def configure_cuda_numerics() -> None:
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    if device is None:
+        device = pinned()
     if device is None:
         if os.environ.get("CLIP_GP_TPU_TORCH_FORCE_CPU") == "1":
             device = "cpu"

@@ -436,16 +436,17 @@ int launch_nt(const void* q, const void* k, const void* v, const void* mask,
   constexpr size_t bytes = Layout<T, DH, NT, QUANT>::bytes;
   // the shared-memory opt-in is a property of the function on a device: set
   // it once per instantiation and device, not on every launch
-  static unsigned long long opted_in = 0;  // bit d: device d
+  // bit d: device d; atomic, as several host threads may launch
+  static std::atomic<unsigned long long> opted_in{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !((opted_in >> dev) & 1ull)) {
+  if (dev >= 64 || !((opted_in.load() >> dev) & 1ull)) {
     err = cudaFuncSetAttribute(attention_kernel<T, DH, NT, QUANT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted_in |= 1ull << dev;
+    if (dev < 64) opted_in.fetch_or(1ull << dev);
   }
   attention_kernel<T, DH, NT, QUANT><<<B * H, WARPS * 32, bytes, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)mask,

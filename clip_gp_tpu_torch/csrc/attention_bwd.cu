@@ -542,16 +542,17 @@ int launch_mode(dim3 grid, const void* qkv, const void* d_attn,
   using L = Layout<NT, MODE>;
   // the shared-memory opt-in is a property of the function on a device: set
   // it once per instantiation and device, not on every launch
-  static unsigned long long opted_in = 0;  // bit d: device d
+  // bit d: device d; atomic, as several host threads may launch
+  static std::atomic<unsigned long long> opted_in{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !((opted_in >> dev) & 1ull)) {
+  if (dev >= 64 || !((opted_in.load() >> dev) & 1ull)) {
     err = cudaFuncSetAttribute(attn_bwd_kernel<NT, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)L::bytes);
     if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted_in |= 1ull << dev;
+    if (dev < 64) opted_in.fetch_or(1ull << dev);
   }
   attn_bwd_kernel<NT, MODE><<<grid, L::WARPS * 32, L::bytes, s>>>(
       (const float*)qkv, (const float*)d_attn, (const float*)mask,

@@ -6,6 +6,8 @@
 // clip_gp_tpu/ops/flash_attention.py): round_to<T>() marks those points.
 #pragma once
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -422,15 +422,16 @@ int encode_k_major(CUtensorMap* map, const void* ptr, int rows, int k, int box_r
 // function on a device: set once per instantiation and device
 template <int EPI, int DT, int GK>
 int opt_in_smem() {
-  static unsigned long long opted_in = 0;  // bit d: device d
+  // bit d: device d; atomic, as several host threads may launch
+  static std::atomic<unsigned long long> opted_in{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 64 && ((opted_in >> dev) & 1ull)) return 0;
+  if (dev < 64 && ((opted_in.load() >> dev) & 1ull)) return 0;
   err = cudaFuncSetAttribute(q8_gemm_kernel<EPI, DT, GK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 64) opted_in |= 1ull << dev;
+  if (dev < 64) opted_in.fetch_or(1ull << dev);
   return 0;
 }
 

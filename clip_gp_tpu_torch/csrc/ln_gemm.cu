@@ -334,11 +334,12 @@ __global__ void __launch_bounds__(H_THREADS, 2)
 // function on a device: set once per epilogue instantiation and device
 template <int EPI>
 int opt_in_bf16_smem() {
-  static unsigned long long opted_in = 0;  // bit d: device d
+  // bit d: device d; atomic, as several host threads may launch
+  static std::atomic<unsigned long long> opted_in{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 64 && ((opted_in >> dev) & 1ull)) return 0;
+  if (dev < 64 && ((opted_in.load() >> dev) & 1ull)) return 0;
   err = cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)H_SMEM_BYTES);
@@ -348,7 +349,7 @@ int opt_in_bf16_smem() {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 64) opted_in |= 1ull << dev;
+  if (dev < 64) opted_in.fetch_or(1ull << dev);
   return 0;
 }
 

@@ -10,6 +10,7 @@ imported at the first decode, not with the module.
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import random
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -17,12 +18,60 @@ import numpy as np
 
 from clip_gp_tpu_torch.data.datum import Datum
 
+# Opt-in native fused JPEG decode->resize->crop (clip_gp_tpu_torch/native;
+# within a few gray levels of the PIL bicubic path). Needs g++ and libjpeg's
+# headers and library; without them every image takes the PIL path.
+_USE_NATIVE = os.environ.get("CLIP_GP_TPU_TORCH_NATIVE_DECODE") == "1"
+
 
 def _load_one(item: Datum, transform, rng=None) -> np.ndarray:
     from PIL import Image, ImageFile
 
     # tolerate truncated files like the reference (ref: train.py:32-33)
     ImageFile.LOAD_TRUNCATED_IMAGES = True
+    is_jpeg = item.impath.lower().endswith((".jpg", ".jpeg"))
+    target = getattr(transform, "native_target", None)
+    if _USE_NATIVE and target is not None and is_jpeg:
+        from clip_gp_tpu_torch.native import decode_resize_crop
+
+        try:
+            with open(item.impath, "rb") as f:
+                out = decode_resize_crop(f.read(), target)
+            if out is not None:
+                return out
+        except OSError:
+            pass
+    rrc = getattr(transform, "native_rrc", None)
+    if _USE_NATIVE and rrc is not None and is_jpeg and rng is not None:
+        # train path: decode + RandomResizedCrop window + flip in one native
+        # pass; the window/flip are sampled HERE with the per-item rng (the
+        # same draws, in the same order, as the PIL path), and a decode
+        # failure falls back to PIL with the ALREADY-sampled window so the
+        # RNG stream never desynchronizes
+        from clip_gp_tpu_torch.data.transforms import sample_rrc_box
+        from clip_gp_tpu_torch.native import decode_rrc, jpeg_dims
+
+        try:
+            with open(item.impath, "rb") as f:
+                data = f.read()
+        except OSError:
+            data = None
+        if data is not None:
+            dims = jpeg_dims(data)
+            if dims is not None:
+                t = rrc["target"]
+                x, y, w, h = sample_rrc_box(dims[0], dims[1], rng=rng)
+                flip = rrc["flip"] and rng.random() < 0.5
+                out = decode_rrc(data, (x, y, w, h), t, flip)
+                if out is not None:
+                    return out
+                img = Image.open(item.impath).convert("RGB")
+                # crop-then-resize like torchvision (see transforms.py)
+                img = img.crop((x, y, x + w, y + h)).resize(
+                    (t, t), Image.BICUBIC)
+                if flip:
+                    img = img.transpose(Image.FLIP_LEFT_RIGHT)
+                return np.asarray(img, dtype=np.uint8)
     img = Image.open(item.impath).convert("RGB")
     if rng is not None:
         return transform(img, rng=rng)

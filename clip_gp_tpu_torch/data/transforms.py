@@ -207,6 +207,22 @@ def build_transform(config, is_train: bool = False) -> Callable[[Image.Image], n
                 img = center_crop(img, size)
             return np.asarray(img.convert("RGB"), dtype=np.uint8)
 
+        spatial_names = [n for n in names if n != "normalize"]
+        if (
+            size[0] == size[1]
+            and config.input.interpolation == "bicubic"
+            and spatial_names in (
+                ["random_resized_crop"],
+                ["random_resized_crop", "random_flip"],
+            )
+        ):
+            # eligible for the native fused decode→crop→resize(→flip) path
+            # (data/pipeline.py); the window/flip RNG draws stay in Python
+            # via sample_rrc_box so PIL and native consume the same stream
+            train_tfm.native_rrc = {
+                "target": size[0],
+                "flip": "random_flip" in names,
+            }
         train_tfm.uses_rng = True
         return train_tfm
 
@@ -220,6 +236,10 @@ def build_transform(config, is_train: bool = False) -> Callable[[Image.Image], n
     # never touches python `random`, so an eval pass (EVAL_FREQ,
     # best_val tracking, predict) must not shift later training draws
     test_tfm.uses_rng = False
+    if size[0] == size[1] and config.input.interpolation == "bicubic":
+        # deterministic square resize+crop: eligible for the native fused
+        # JPEG decode path (see data/pipeline.py)
+        test_tfm.native_target = size[0]
     return test_tfm
 
 

@@ -13,14 +13,18 @@ imports every module of the package.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -52,6 +56,11 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# one build per process, whichever thread launches first
+_LIB_LOCK = threading.Lock()
+# guards the wrappers' LAUNCHES counters: threads driving several devices
+# (the sweep's group-parallel workers) launch at once
+_COUNT_LOCK = threading.Lock()
 # what the last build did, for chip_smoke.py's report
 last_build = {"seconds": 0.0, "cached": True, "ptxas": ""}
 
@@ -128,13 +137,14 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _c_int
-        _lib = lib
+    with _LIB_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _c_int
+            _lib = lib
     return _lib
 
 
@@ -142,3 +152,36 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``, exact under concurrent threads."""
+    with _COUNT_LOCK:
+        counts[name] += 1
+
+
+def reset_counts(counts: Dict[str, int]) -> None:
+    with _COUNT_LOCK:
+        for name in counts:
+            counts[name] = 0
+
+
+def on_tensor_device(fn):
+    """Run ``fn`` with its first CUDA tensor argument's device as the
+    thread's current device. The C entry points ask ``cudaGetDevice`` where
+    to opt in to shared memory and launch, while the wrappers pass the
+    stream of the tensor's device: a thread whose current device is another
+    card (a group-parallel worker, a trial slice) would launch on the wrong
+    one."""
+
+    @functools.wraps(fn)
+    def guarded(*args, **kwargs):
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                if a.is_cuda:
+                    with torch.cuda.device(a.device):
+                        return fn(*args, **kwargs)
+                break
+        return fn(*args, **kwargs)
+
+    return guarded

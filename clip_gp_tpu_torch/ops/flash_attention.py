@@ -110,8 +110,7 @@ _COLSUM_ROWS = 64
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +508,7 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+@_build.on_tensor_device
 def _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream):
     """The attention core of K1 and K8: qkv [B·N, 3D] -> attn [B·N, D]."""
     mask32 = None if mask is None else _f32(mask)
@@ -519,6 +519,7 @@ def _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream):
     )
 
 
+@_build.on_tensor_device
 def _attention_bwd(lib, qkv, d_attn, mask, b, n, num_heads, d, stream,
                    with_attn):
     """The attention-core backward of K3 (``attention_bwd.cu``): fp32 qkv
@@ -540,6 +541,7 @@ def _attention_bwd(lib, qkv, d_attn, mask, b, n, num_heads, d, stream,
     return dqkv, attn
 
 
+@_build.on_tensor_device
 def _gemm(lib, a, w, bias, out, epilogue, stream, resid=None, tile=None):
     """One product of ``ln_gemm.cu`` into ``out``: ``a`` [M, K] read as is
     (the qkv and c_fc products take LN(x) from ``_ln_input``). fp32 runs the
@@ -557,6 +559,7 @@ def _gemm(lib, a, w, bias, out, epilogue, stream, resid=None, tile=None):
     )
 
 
+@_build.on_tensor_device
 def _ln_input(lib, x2d, gamma, beta, stream):
     """LN(x) [rows, D] in x's dtype, the A of the qkv and c_fc products, in a
     pass of its own: fp32 by ``_ln_f32``; bf16 by the row statistics, then
@@ -574,6 +577,7 @@ def _ln_input(lib, x2d, gamma, beta, stream):
     return h
 
 
+@_build.on_tensor_device
 def _ln_f32(lib, x2d, gamma, beta, stream):
     """(row statistics [rows, 2], LN(x) [rows, D] fp32), in one pass: the
     statistics for the LN backward, LN(x) for the products of K3 and K4
@@ -620,6 +624,7 @@ def _gemm_bwd_plan(m: int, n: int, k: int, product: str, sms: int):
     return _tile_plan(m, n, sms), 1
 
 
+@_build.on_tensor_device
 def _gemm_bwd(lib, product, a, b, m, n, k, stream, bias=None, aux=None,
               act=None, plan=None):
     """One fp32 product of gemm_bwd.cu (``_GEMM_BWD_PRODUCTS``), returned as
@@ -647,6 +652,7 @@ def _gemm_bwd(lib, product, a, b, m, n, k, stream, bias=None, aux=None,
     return total
 
 
+@_build.on_tensor_device
 def _colsum(lib, src2d, stream):
     """fp32 column sums of a [rows, cols] fp32 or bf16 tensor, in two passes
     (per-block partial sums, then one fixed-order reduce)."""
@@ -662,6 +668,7 @@ def _colsum(lib, src2d, stream):
     return out
 
 
+@_build.on_tensor_device
 def _ln_bwd(lib, x2d, dout2d, dh, stats, gamma, stream, param_grads):
     """(dx in x's dtype, dγ, dβ) from the fp32 gradient ``dh`` at the LN
     output; dγ and dβ are None unless ``param_grads``."""
@@ -710,7 +717,7 @@ def _ln_attention_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream)
     _gemm(lib, attn, w_out, _f32(b_out), out.view(b * n, d), _EPI_RESID_ATTN,
           stream, resid=x2d)
-    LAUNCHES["fused_ln_attention_block"] += 1
+    _build.count_launch(LAUNCHES, "fused_ln_attention_block")
     return out
 
 
@@ -727,7 +734,7 @@ def _ln_mlp_forward(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     _gemm(lib, h, w_fc, _f32(b_fc), hid, _EPI_GELU, stream)
     _gemm(lib, hid, w_proj, _f32(b_proj), out.view(b * n, d), _EPI_RESID_MLP,
           stream, resid=x2d)
-    LAUNCHES["fused_ln_mlp"] += 1
+    _build.count_launch(LAUNCHES, "fused_ln_mlp")
     return out
 
 
@@ -735,6 +742,7 @@ def _ln_mlp_forward(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
 # K7 and K8
 # ---------------------------------------------------------------------------
 
+@_build.on_tensor_device
 def flash_attention(q, k, v, mask=None):
     """K7: ``softmax(q·kᵀ/√Dh + mask)·v`` for contiguous q, k, v [B, H, N,
     Dh] of one dtype (fp32 or bf16), Dh 32 or 64, N <= 256; mask an optional
@@ -755,7 +763,7 @@ def flash_attention(q, k, v, mask=None):
                                stream),
         "attention_bhnd",
     )
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -775,7 +783,7 @@ def _attention_block_forward(h, w_qkv, b_qkv, w_out, b_out, num_heads, mask):
     _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream)
     _gemm(lib, attn, w_out, _f32(b_out.to(h.dtype)), out.view(b * n, d),
           _EPI_BIAS, stream)
-    LAUNCHES["fused_attention_block"] += 1
+    _build.count_launch(LAUNCHES, "fused_attention_block")
     return out
 
 
@@ -814,7 +822,7 @@ def ln_attn_bwd(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, mask,
     dh = _gemm_bwd(lib, "nt", dqkv, w_qkv32, t, d, 3 * d, stream)
     dx, dg, db = _ln_bwd(lib, x2d, dout2d, dh, stats, gamma, stream,
                          param_grads)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     if not param_grads:
         return (dx.view(b, n, d),) + (None,) * 6
     dw_qkv = _gemm_bwd(lib, "tn", h, dqkv, d, 3 * d, t, stream)
@@ -857,7 +865,7 @@ def ln_mlp_bwd(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, dout,
     dh = _gemm_bwd(lib, "nt", dhid, w_fc32, t, d, hidden, stream)
     dx, dg, db = _ln_bwd(lib, x2d, dout2d, dh, stats, gamma, stream,
                          param_grads)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     if not param_grads:
         return (dx.view(b, n, d),) + (None,) * 6
     dw_fc = _gemm_bwd(lib, "tn", h, dhid, d, hidden, t, stream)

@@ -61,8 +61,7 @@ _K_STEP = 32
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +224,7 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+@_build.on_tensor_device
 def _quantize(lib, x2d, stream, gamma=None, beta=None):
     """(int8 codes, fp32 row scales) of the rows of ``x2d``, LayerNormed
     first when ``gamma``/``beta`` are given."""
@@ -240,6 +240,7 @@ def _quantize(lib, x2d, stream, gamma=None, beta=None):
     return q, scale
 
 
+@_build.on_tensor_device
 def _q8_gemm(lib, a, w, row_scale, col_scale, bias, out, epilogue, stream,
              group_k=None, resid=None, wt=None):
     """``out = epilogue(Σ_groups (A·W)_group · row_scale · col_scale)``: one
@@ -283,6 +284,7 @@ def _k_major(weights):
             if wt is not None}
 
 
+@_build.on_tensor_device
 def q8_ln_attention_block(x, ln_scale, ln_bias, wqkv_q, wqkv_scale, b_qkv,
                           wout_q, wout_scale, b_out, num_heads: int,
                           mask: Optional[torch.Tensor] = None,
@@ -328,7 +330,7 @@ def q8_ln_attention_block(x, ln_scale, ln_bias, wqkv_q, wqkv_scale, b_qkv,
     out = torch.empty_like(x)
     _q8_gemm(lib, oq, wout_q, os, _f32(wout_scale), _f32(b_out), out.view(t, d),
              _EPI_RESID_ATTN, stream, group_k=HEAD_DIM, resid=x2d, wt=wout_qt)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -365,5 +367,5 @@ def q8_ln_mlp(x, ln_scale, ln_bias, wfc_q, wfc_scale, b_fc, wpr_q, wpr_scale,
     out = torch.empty_like(x)
     _q8_gemm(lib, gq, wpr_q, gs, _f32(wpr_scale), _f32(b_pr), out.view(t, d),
              _EPI_RESID_MLP, stream, resid=x2d, wt=wpr_qt)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out

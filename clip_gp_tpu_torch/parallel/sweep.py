@@ -24,22 +24,28 @@ Execution backends:
   turns it off, ``CLIP_GP_TPU_TORCH_PREFETCH_BUDGET_MB`` bounds its buffer);
   the rest run in-process.
 
+  Several devices: ``--group-parallel N`` runs up to N groups at once,
+  worker w pinned to device w mod n_devices (dataset-sticky buckets);
+  ``--trial-mesh N|auto`` splits each group's trial axis over up to N
+  devices. Without either, one worker per device, capped by the number of
+  datasets (one device: the sequential schedule above).
+
 Run as ``python -m clip_gp_tpu_torch.parallel.sweep --config-file exp.yaml
 [--backend inprocess|subprocess|vmap]``, or through
 ``python -m clip_gp_tpu_torch.parallel.run_experiment exp.yaml [args]``.
 The in-process and vmap backends run on the GPU, or on the CPU with
 ``CLIP_GP_TPU_TORCH_FORCE_CPU=1`` (``core.device.resolve_device``); the
-subprocess children resolve their own device the same way.
-
-Not here yet (ROADMAP queue 1): ``--group-parallel`` (groups pinned to
-several GPUs) and ``--trial-mesh`` (one group's trial axis over several
-GPUs) raise; the sharded extraction the JAX package switches off during a
-sweep does not exist in the port.
+subprocess children resolve their own device the same way. A sweep never
+splits one trial's extraction batch over the devices
+(``CLIP_GP_TPU_TORCH_SHARD_EXTRACTION=0`` while it runs): its parallelism
+is trials and groups over devices.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import itertools
 import os
 import queue
@@ -51,8 +57,30 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
-# the ROADMAP item that brings what this module refuses
-MULTI_GPU_ITEM = "ROADMAP queue 1, item 2 (multi-GPU placement)"
+
+def _no_extraction_sharding(fn):
+    """Switch off the trainer's batch-sharded feature extraction
+    (``parallel/mesh.maybe_sharded_encode``) while a sweep runs, as the JAX
+    package does. A sweep's parallelism is trials and groups over devices;
+    a per-trial encode over every device would fight the group-parallel
+    scheduler, and the sequential and group-parallel sweeps stay equal bit
+    for bit (chunked and whole-batch encodes may differ at the ULP level,
+    and pinned workers never shard). Subprocess children inherit the
+    variable."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        prev = os.environ.get("CLIP_GP_TPU_TORCH_SHARD_EXTRACTION")
+        os.environ["CLIP_GP_TPU_TORCH_SHARD_EXTRACTION"] = "0"
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if prev is None:
+                os.environ.pop("CLIP_GP_TPU_TORCH_SHARD_EXTRACTION", None)
+            else:
+                os.environ["CLIP_GP_TPU_TORCH_SHARD_EXTRACTION"] = prev
+
+    return wrapped
 
 DATASET_NAME_MAP = {
     "caltech101": "Caltech101",
@@ -229,6 +257,7 @@ def _result(trial: Trial, rc: int, backend: str) -> Dict[str, Any]:
     }
 
 
+@_no_extraction_sharding
 def run_trials_inprocess(trials: List[Trial]) -> List[Dict[str, Any]]:
     """Sequential in-process execution: the CLIP weights are loaded by each
     trial, and each trial's stdout is teed into its log.txt."""
@@ -332,35 +361,66 @@ def group_trials(trials: List[Trial]) -> Tuple[Dict[tuple, List[Trial]], Dict[tu
     return groups, configs
 
 
+def _group_trial_mesh(n_trials: int, devices, requested: int):
+    """The devices one trial group's [T, ...] trial axis splits over: the
+    first m, m the largest divisor of T at most min(requested, devices) (the
+    axis splits evenly or not at all, as the JAX package's ``NamedSharding``
+    placement). None when fewer than two devices would take part."""
+    cap = min(int(requested), len(devices))
+    m = 1
+    for d in range(2, cap + 1):
+        if n_trials % d == 0:
+            m = d
+    if m < 2:
+        return None
+    return list(devices[:m])
+
+
+@_no_extraction_sharding
 def run_trials_vmapped(
     trials: List[Trial], strict: bool = False,
     group_parallel: Optional[int] = None,
     trial_mesh: Optional[int] = None,
 ) -> List[Dict[str, Any]]:
     """Group trials that differ only by seed (or by grid values that join the
-    trial axis) and train each group as one trial-batched program on one
-    device, group after group. Trials the gate does not admit run
-    in-process. A group that fails falls back to the in-process backend
-    with a counted ``[vmap] ... fallback`` line (the JAX package's
-    behaviour); with ``strict`` it raises instead.
+    trial axis) and train each group as one trial-batched program. Trials
+    the gate does not admit run in-process. A group that fails falls back
+    to the in-process backend with a counted ``[vmap] ... fallback`` line
+    (the JAX package's behaviour); with ``strict`` it raises instead.
+
+    ``group_parallel``: run up to N groups at once on host threads, worker w
+    pinned to local device w mod n_devices (``core.device.pinned_device``),
+    the counterpart of the reference's process-per-GPU pinning. Groups go to
+    workers per dataset (dataset-sticky), so each eval split is encoded once;
+    when workers outnumber datasets the buckets split to (dataset, shots).
+    Workers may outnumber devices: co-resident groups share a device. A
+    strict failure stops every worker. Default (None): one worker per local
+    device, capped by the dataset count; 1: sequential.
+
+    ``trial_mesh``: split each group's trial axis over up to N local devices
+    (``VmappedTrials(mesh=...)``, ``_group_trial_mesh``); a group whose size
+    has no divisor >= 2 within the budget runs unsharded. Mutually exclusive
+    with ``group_parallel`` > 1: trial-mesh spreads one group over the
+    devices, group-parallel gives different groups different devices.
 
     CoCoOp groups take the in-process backend, the JAX runner's default on
-    one device; ``strict`` or ``CLIP_GP_TPU_TORCH_VMAP_COCOOP=1`` trains
-    them on the trial axis.
+    one device with a sequential schedule; ``strict``,
+    ``CLIP_GP_TPU_TORCH_VMAP_COCOOP=1``, a parallel schedule or a usable
+    trial mesh trains them on the trial axis.
 
-    Decode-ahead: when a feature-cached group reaches training
-    (``on_before_train``), a ``DecodePrefetcher`` samples the next group's
-    splits and decodes its train union on a host thread, and the next group
-    adopts it. ``CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH=1`` runs the
-    groups strictly one after another; the draws are the same either way.
-
-    ``group_parallel`` > 1 and ``trial_mesh`` (several GPUs) raise: they
-    are ``MULTI_GPU_ITEM``."""
-    if trial_mesh or (group_parallel or 1) > 1:
-        raise NotImplementedError(
-            "--group-parallel > 1 and --trial-mesh spread groups over several "
-            f"GPUs, which the port does not do yet ({MULTI_GPU_ITEM})"
+    Decode-ahead (sequential schedule only): when a feature-cached group
+    reaches training (``on_before_train``), a ``DecodePrefetcher`` samples
+    the next group's splits and decodes its train union on a host thread,
+    and the next group adopts it.
+    ``CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH=1`` runs the groups strictly
+    one after another; the draws are the same either way."""
+    if trial_mesh and group_parallel and group_parallel > 1:
+        raise ValueError(
+            "--trial-mesh and --group-parallel are mutually exclusive: "
+            "the first shards one group over all devices, the second pins "
+            "whole groups to single devices"
         )
+    from clip_gp_tpu_torch.core import device as device_mod
     from clip_gp_tpu_torch.parallel.trial_vmap import (
         DecodePrefetcher,
         run_vmapped_trials,
@@ -369,11 +429,19 @@ def run_trials_vmapped(
 
     vmappable_keys = vmappable_config_keys()
     groups, configs = group_trials(trials)
+    local = device_mod.local_devices()
 
     results: List[Dict[str, Any]] = []
     leftovers: List[Trial] = []
     n_fallback_groups = 0
     force_cocoop = os.environ.get("CLIP_GP_TPU_TORCH_VMAP_COCOOP") == "1"
+
+    # Would this sweep schedule groups concurrently? In-process trials use
+    # the global RNG and run one after another, so CoCoOp's in-process
+    # routing below applies only where the schedule is sequential anyway
+    n_sweep_datasets = len({g[0].dataset for g in groups.values()})
+    parallel_scheduler = (group_parallel or 0) > 1 or (
+        not trial_mesh and len(local) > 1 and n_sweep_datasets > 1)
 
     work_items: List[Tuple] = []
     for key, group in groups.items():
@@ -383,12 +451,23 @@ def run_trials_vmapped(
             # head variants the trial-batched runner doesn't model
             leftovers.extend(group)
             continue
-        if method == "Adapter-CoCoOp" and not strict and not force_cocoop:
+        mesh = None
+        if trial_mesh:
+            mesh = _group_trial_mesh(len(group), local, trial_mesh)
+            if mesh is not None:
+                print(f"[vmap] trial-mesh: group {key} shards {len(group)} "
+                      f"trial(s) over {len(mesh)} device(s)")
+            else:
+                print(f"[vmap] trial-mesh: group {key} ({len(group)} trials) "
+                      "has no divisor >= 2 within the device budget; running "
+                      "unsharded")
+        if (method == "Adapter-CoCoOp" and mesh is None and not strict
+                and not parallel_scheduler and not force_cocoop):
             print(
                 f"[vmap] group {key}: Adapter-CoCoOp routes to the in-process "
                 "backend on one device (the JAX runner's default); "
-                "--strict-vmap or CLIP_GP_TPU_TORCH_VMAP_COCOOP=1 trains it on "
-                "the trial axis"
+                "--trial-mesh, --strict-vmap or CLIP_GP_TPU_TORCH_VMAP_COCOOP=1 "
+                "trains it on the trial axis"
             )
             leftovers.extend(group)
             continue
@@ -401,43 +480,25 @@ def run_trials_vmapped(
         outdirs = [t.format_outdir() for t in group]
         for d in outdirs:
             d.mkdir(parents=True, exist_ok=True)
-        work_items.append((key, group, config, method, seeds, overrides, outdirs))
+        work_items.append((key, group, config, method, seeds, overrides, outdirs,
+                           mesh))
 
-    prefetch_on = (os.environ.get("CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH") != "1"
-                   and len(work_items) > 1)
-    prefetchers: List[Any] = [None] * len(work_items)
+    lock = threading.Lock()
+    strict_errors: List[BaseException] = []
 
-    def _starter(i: int):
-        def start() -> None:
-            j = i + 1
-            if not prefetch_on or j >= len(work_items) or prefetchers[j] is not None:
-                return
-            key_j, _, config_j, method_j, seeds_j, overrides_j, _ = work_items[j]
-            try:
-                prefetchers[j] = DecodePrefetcher(config_j, seeds_j,
-                                                  trial_overrides=overrides_j,
-                                                  method=method_j).start()
-            except Exception as e:
-                # the group's own run meets the same error and reports it
-                print(f"[vmap] decode-ahead: group {key_j} not prefetched ({e})")
-                return
-            print(f"[vmap] decode-ahead: prefetching group {j + 1}/{len(work_items)}")
-
-        return start
-
-    for i, (key, group, config, method, seeds, overrides, outdirs) in enumerate(
-            work_items):
-        prefetched = prefetchers[i]
+    def _run_group(item, prefetched=None, start_next=None) -> None:
+        nonlocal n_fallback_groups
+        key, group, config, method, seeds, overrides, outdirs, mesh = item
         try:
             if prefetched is not None:
                 # adopt the decode-ahead runner: its splits are sampled and
                 # its union decode is under way or done
-                prefetched.runner.on_before_train = _starter(i)
+                prefetched.runner.on_before_train = start_next
                 prefetched.runner.run(outdirs)
             else:
                 run_vmapped_trials(
                     config, seeds, outdirs, trial_overrides=overrides, method=method,
-                    on_before_train=_starter(i),
+                    on_before_train=start_next, mesh=mesh,
                 )
         except Exception as e:
             import traceback
@@ -445,27 +506,113 @@ def run_trials_vmapped(
             if prefetched is not None:
                 prefetched.cancel()
             traceback.print_exc()
-            if strict:
+            with lock:
+                if strict:
+                    err = RuntimeError(f"vmapped group {key} failed under --strict-vmap")
+                    err.__cause__ = e
+                    strict_errors.append(err)
+                    return
+                n_fallback_groups += 1
+                print(
+                    f"[ERROR] vmapped group {key} failed ({e}); "
+                    "falling back to in-process (use --strict-vmap to error)"
+                )
+                leftovers.extend(group)
+            return
+        with lock:
+            for t in group:
+                (t.format_outdir() / "log.txt").touch()  # skip-if-done
+                results.append(_result(t, 0, "vmap"))
+                print(
+                    f"[vmap] OK method={method} dataset={t.dataset} "
+                    f"shots={t.shots} seed={t.seed} config={t.signature()}"
+                )
+
+    # dataset-sticky buckets: all of a dataset's groups run on one worker so
+    # its eval split is memo-encoded once, on that worker's device
+    buckets: Dict[Any, List[Tuple]] = {}
+    for item in work_items:
+        buckets.setdefault(item[1][0].dataset, []).append(item)
+    if group_parallel:
+        # explicit: workers may outnumber devices (co-resident groups share
+        # one; the in-flight memo lock stops duplicate eval encodes). If the
+        # datasets cannot feed that many workers, split the buckets down to
+        # (dataset, shots)
+        n_workers = max(1, group_parallel)
+        if n_workers > len(buckets):
+            buckets = {}
+            for item in work_items:
+                buckets.setdefault((item[1][0].dataset, item[1][0].shots),
+                                   []).append(item)
+        n_workers = min(n_workers, len(buckets) or 1)
+    elif trial_mesh:
+        # the groups spread over the devices' trial axis; the schedule
+        # itself stays sequential (with decode-ahead)
+        n_workers = 1
+    else:
+        n_workers = max(1, min(len(local), len(buckets) or 1))
+
+    if n_workers <= 1:
+        prefetch_on = (os.environ.get("CLIP_GP_TPU_TORCH_DISABLE_DECODE_PREFETCH") != "1"
+                       and len(work_items) > 1)
+        prefetchers: List[Any] = [None] * len(work_items)
+
+        def _starter(i: int):
+            def start() -> None:
+                j = i + 1
+                if not prefetch_on or j >= len(work_items) or prefetchers[j] is not None:
+                    return
+                key_j, _, config_j, method_j, seeds_j, overrides_j, _, mesh_j = \
+                    work_items[j]
+                try:
+                    prefetchers[j] = DecodePrefetcher(
+                        config_j, seeds_j, trial_overrides=overrides_j,
+                        method=method_j, mesh=mesh_j).start()
+                except Exception as e:
+                    # the group's own run meets the same error and reports it
+                    print(f"[vmap] decode-ahead: group {key_j} not prefetched ({e})")
+                    return
+                print(f"[vmap] decode-ahead: prefetching group {j + 1}/{len(work_items)}")
+
+            return start
+
+        for i, item in enumerate(work_items):
+            _run_group(item, prefetched=prefetchers[i], start_next=_starter(i))
+            if strict_errors:
                 for pf in prefetchers:
                     if pf is not None and not pf.consumed:
                         pf.cancel()
-                raise RuntimeError(
-                    f"vmapped group {key} failed under --strict-vmap"
-                ) from e
-            n_fallback_groups += 1
-            print(
-                f"[ERROR] vmapped group {key} failed ({e}); "
-                "falling back to in-process (use --strict-vmap to error)"
-            )
-            leftovers.extend(group)
-            continue
-        for t in group:
-            (t.format_outdir() / "log.txt").touch()  # skip-if-done
-            results.append(_result(t, 0, "vmap"))
-            print(
-                f"[vmap] OK method={method} dataset={t.dataset} "
-                f"shots={t.shots} seed={t.seed} config={t.signature()}"
-            )
+                raise strict_errors[0]
+    else:
+        # no decode-ahead on a parallel schedule: the workers' own decodes
+        # already overlap other workers' training
+        print(f"[vmap] scheduling {len(work_items)} trial group(s) over "
+              f"{n_workers} worker(s) / {len(local)} device(s)")
+
+        def _worker(wid: int, my_items: List[Tuple]) -> None:
+            # no device to pin on a host without a GPU or a CPU request:
+            # each group's runner then raises, as the sequential path's does
+            dev = local[wid % len(local)] if local else None
+            with (device_mod.pinned_device(dev) if dev is not None
+                  else contextlib.nullcontext()):
+                for item in my_items:
+                    with lock:
+                        if strict_errors:
+                            return
+                    _run_group(item)
+
+        assignments: List[List[Tuple]] = [[] for _ in range(n_workers)]
+        for i, bucket in enumerate(sorted(buckets, key=str)):
+            assignments[i % n_workers].extend(buckets[bucket])
+        threads = [threading.Thread(target=_worker, args=(i, items), daemon=True)
+                   for i, items in enumerate(assignments)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if strict_errors:
+            raise strict_errors[0]
+        results.sort(key=lambda r: r["index"])
 
     if n_fallback_groups:
         print(
@@ -481,6 +628,7 @@ def run_trials_vmapped(
     return results
 
 
+@_no_extraction_sharding
 def run_trials_subprocess(
     trials: List[Trial],
     devices: List[str],
@@ -589,17 +737,36 @@ def main(argv=None):
     )
     ap.add_argument(
         "--group-parallel", type=int, default=None,
-        help="vmap backend: run up to N trial groups concurrently, one per "
-             f"GPU; only 1 (sequential) runs in the port ({MULTI_GPU_ITEM})",
+        help="vmap backend: run up to N trial groups concurrently, worker w "
+             "pinned to local device w mod n_devices (default: one worker per "
+             "device, dataset-sticky; 1 = sequential)",
     )
     ap.add_argument(
         "--trial-mesh", nargs="?", const="auto", default=None,
-        help="vmap backend: split each group's trial axis over several GPUs; "
-             f"not in the port yet ({MULTI_GPU_ITEM})",
+        help="vmap backend: split each trial group's [T, ...] state over up "
+             "to N local devices ('auto' or no value = all local devices). "
+             "Pure placement: top-1 identical to unsharded, calibration "
+             "metrics within float tolerance. Mutually exclusive with "
+             "--group-parallel: trial-mesh splits ONE group across devices, "
+             "group-parallel runs DIFFERENT groups on different devices",
     )
     args = ap.parse_args(argv)
-    if args.trial_mesh is not None and args.backend != "vmap":
-        ap.error("--trial-mesh requires --backend vmap")
+    trial_mesh = None
+    if args.trial_mesh is not None:
+        if args.backend != "vmap":
+            ap.error("--trial-mesh requires --backend vmap")
+        if str(args.trial_mesh).lower() == "auto":
+            trial_mesh = 1 << 30  # capped at the local device count
+        else:
+            try:
+                trial_mesh = int(args.trial_mesh)
+            except ValueError:
+                ap.error(
+                    f"--trial-mesh expects an integer or 'auto', got "
+                    f"{args.trial_mesh!r}"
+                )
+            if trial_mesh < 2:
+                ap.error("--trial-mesh needs >= 2 devices (or 'auto')")
 
     t0 = time.time()
     config_path = Path(args.config_file)
@@ -629,7 +796,7 @@ def main(argv=None):
     if args.backend == "vmap":
         results = run_trials_vmapped(
             todo, strict=args.strict_vmap, group_parallel=args.group_parallel,
-            trial_mesh=1 if args.trial_mesh is not None else None,
+            trial_mesh=trial_mesh,
         )
     elif subprocess_backend:
         results = run_trials_subprocess(

@@ -42,8 +42,14 @@ What the JAX runner has and this one does not, and why:
   so "the in-process jit cache and the persistent compile cache actually
   hit"), and its outputs are top-1-exact against the unpadded run. Eager
   PyTorch compiles nothing per shape, so padding would only add compute.
-- Not yet (ROADMAP queue 1, item 2): the trial axis split over several
-  GPUs (``--trial-mesh``).
+
+Trial mesh (``mesh``, the sweep's ``--trial-mesh``): the trial axis splits
+into M contiguous slices, one per device. The splits, the union encode and
+the augmentation stream are the group's, made once on the first device as
+without a mesh; each slice's trainable state, constants, draws and
+optimizer live on its device, and every step runs each slice's forward,
+backward and update there. Trials never exchange anything, so top-1 equals
+the unsharded run's (the JAX runner's ``NamedSharding`` placement).
 
 Randomness: each trial's GP noise comes from its own ``torch.Generator``
 (``TrialDraws``), and the runner takes any ``draws`` callable in its place,
@@ -102,9 +108,15 @@ class TrialDraws:
     "prestage_protos") only name it. A test passes a callable with the same
     signature that returns the JAX package's draws for (kind, index)."""
 
-    def __init__(self, seeds: Sequence[int], device):
+    def __init__(self, seeds: Sequence[int], device,
+                 positions: Optional[Sequence[int]] = None):
+        # positions: each trial's place in its group (a trial slice's
+        # draws are those trials' draws of the whole group)
+        self.seeds = list(seeds)
+        self.positions = list(positions) if positions is not None else list(
+            range(len(self.seeds)))
         self.gens = []
-        for t, seed in enumerate(seeds):
+        for t, seed in zip(self.positions, self.seeds):
             child = np.random.SeedSequence([int(seed) & (2**64 - 1), t])
             g = torch.Generator(device=device)
             g.manual_seed(int(child.generate_state(1, dtype=np.uint64)[0] >> 1))
@@ -113,6 +125,58 @@ class TrialDraws:
     def __call__(self, kind: str, index: int, shape) -> torch.Tensor:
         return torch.stack([torch.randn(tuple(shape), generator=g, device=g.device)
                             for g in self.gens])
+
+
+def _slice_draws(draws, lo: int, hi: int, device):
+    """Trials [lo, hi) of a group's draws, on ``device``: fresh generators
+    for a ``TrialDraws`` (each trial's stream is its own), else the slice of
+    what the callable returns (the tests' callables are functions of
+    (kind, index))."""
+    if isinstance(draws, TrialDraws):
+        return TrialDraws(draws.seeds[lo:hi], device, draws.positions[lo:hi])
+    return lambda kind, index, shape: draws(kind, index, shape)[lo:hi].to(device)
+
+
+class _TrialSlice:
+    """Trials [lo, hi) of a runner, on one device of its trial mesh: the
+    attributes a spec reads from its runner (``MethodSpec.r``), sliced to
+    those trials and placed on that device. The frozen model is copied to
+    the device the first time a spec asks for it (the prompt heads run the
+    text tower in their loss)."""
+
+    def __init__(self, runner: "VmappedTrials", lo: int, hi: int, device):
+        self.runner, self.lo, self.hi = runner, lo, hi
+        self.device = torch.device(device)
+        self.config, self.method = runner.config, runner.method
+        self.seeds = runner.seeds[lo:hi]
+        self.t_trials = hi - lo
+        self.trial_overrides = runner.trial_overrides[lo:hi]
+        self.draws = _slice_draws(runner.draws, lo, hi, self.device)
+        self.arch, self.classnames = runner.arch, runner.classnames
+        self.logit_scale = runner.logit_scale
+        self.k, self.m, self.d = runner.k, runner.m, runner.d
+        self.text_embeddings = runner.text_embeddings.to(self.device)
+        self.feats_test = runner.feats_test.to(self.device)
+        self.labels_test = runner.labels_test
+        self.labels_test_dev = runner.labels_test_dev.to(self.device)
+        self._clip_model = None
+
+    @property
+    def clip_model(self):
+        if self._clip_model is None:
+            from clip_gp_tpu_torch.parallel.mesh import replicate
+
+            self._clip_model = replicate(self.runner.clip_model, [self.device])[0]
+        return self._clip_model
+
+
+class _SliceRun:
+    """One slice's training state: its spec (bound to the runner itself
+    without a mesh), trainable params, constants and optimizer."""
+
+    def __init__(self, view, lo: int, hi: int):
+        self.view, self.lo, self.hi = view, lo, hi
+        self.dev = view.device
 
 
 class VmappedTrials:
@@ -126,13 +190,16 @@ class VmappedTrials:
     ``clip_loader.trial_state_from_numpy`` converts it). ``draws``:
     ``(kind, index, shape) -> [T, *shape]`` standard-normal draws, by default
     ``TrialDraws``. ``device``: the GPU unless the caller asks for the CPU
-    (``core.device.resolve_device``)."""
+    (``core.device.resolve_device``). ``mesh``: a list of M >= 2 devices
+    whose count divides T; the trials split into M contiguous slices, slice
+    i trained on ``mesh[i]``, and everything before training runs on
+    ``device`` (by default ``mesh[0]``)."""
 
     def __init__(self, config, seeds: Sequence[int],
                  trial_overrides: Optional[Sequence[Dict]] = None,
                  method: Optional[str] = None, device=None,
                  initial_state: Optional[Dict] = None,
-                 draws: Optional[Callable] = None):
+                 draws: Optional[Callable] = None, mesh=None):
         self.config = config
         self.seeds = list(seeds)
         self.t_trials = len(self.seeds)
@@ -159,6 +226,13 @@ class VmappedTrials:
             if unknown:
                 raise ValueError(f"unsupported vmapped hparams for {self.method}: "
                                  f"{sorted(unknown)}")
+        self.mesh = None if mesh is None else [torch.device(d) for d in mesh]
+        if self.mesh is not None and (len(self.mesh) < 2
+                                      or self.t_trials % len(self.mesh)):
+            raise ValueError(f"a trial mesh of {len(self.mesh)} devices does not "
+                             f"split {self.t_trials} trials evenly")
+        if device is None and self.mesh is not None:
+            device = self.mesh[0]
         self.device = resolve_device(device)
         self.initial_state = initial_state
         self.draws = draws if draws is not None else TrialDraws(self.seeds, self.device)
@@ -248,11 +322,29 @@ class VmappedTrials:
         return common.l2_normalize(feats) if normalize else feats
 
     def _initial_params(self, spec):
+        """The initial state of the spec's trials (a mesh slice's, or the
+        group's) on the spec's device."""
+        lo, hi = ((spec.r.lo, spec.r.hi) if isinstance(spec.r, _TrialSlice)
+                  else (0, self.t_trials))
         if self.initial_state is None:
-            return stack_trees([spec.init_params(s) for s in self.seeds])
+            return stack_trees([spec.init_params(s) for s in self.seeds[lo:hi]])
         from clip_gp_tpu_torch.models.clip_loader import trial_state_from_numpy
 
-        return trial_state_from_numpy(self.initial_state, self.device)
+        def rows(tree):
+            return {k: rows(v) if isinstance(v, dict) else np.asarray(v)[lo:hi]
+                    for k, v in tree.items()}
+
+        return trial_state_from_numpy(rows(self.initial_state), spec.r.device)
+
+    def _slices(self) -> List[_SliceRun]:
+        """The trial slices: the whole group on the runner's device, or one
+        contiguous slice per device of the trial mesh."""
+        if self.mesh is None:
+            return [_SliceRun(self, 0, self.t_trials)]
+        size = self.t_trials // len(self.mesh)
+        return [_SliceRun(_TrialSlice(self, i * size, (i + 1) * size, d),
+                          i * size, (i + 1) * size)
+                for i, d in enumerate(self.mesh)]
 
     # ------------------------------------------------------------------
     def run(self, trial_outdirs: Optional[Sequence[str]] = None) -> List[Dict]:
@@ -290,25 +382,23 @@ class VmappedTrials:
         self.logit_scale = float(np.exp(self.clip_model.logit_scale.item()))
         self.k, self.m, self.d = (int(s) for s in self.text_embeddings.shape)
 
-        spec = self.spec = spec_cls(self)
-
         # one frozen-tower pass over the union of all trials' few-shot images
+        normalize = spec_cls.normalize_features
         train_idx = torch.from_numpy(seed_index).to(dev)
         with phase_timer("vmap.union_encode", device=dev):
             # a prefetcher's stream holds the same batches, in the same
             # order, from the same augmentation draws
             prefetched = None if self._prefetch is None else _PrefetchedLoader(
                 self._prefetch, union_items, config.dataloader.batch_size_train)
-            union_feats = self._encode_union(base, union_items, dm,
-                                             spec.normalize_features, loader=prefetched)
+            union_feats = self._encode_union(base, union_items, dm, normalize,
+                                             loader=prefetched)
             if self._prefetch is not None:
                 self._prefetch.consumed = True
         with phase_timer("vmap.test_encode", device=dev):
             labels_test, feats_test = base.encode_images_batched(dm.test_loader,
                                                                  cacheable=True)
         feats_test = torch.from_numpy(feats_test).to(dev)
-        self.feats_test = (common.l2_normalize(feats_test) if spec.normalize_features
-                           else feats_test)
+        self.feats_test = common.l2_normalize(feats_test) if normalize else feats_test
         self.labels_test = labels_test
         self.labels_test_dev = torch.from_numpy(np.asarray(labels_test, np.int64)).to(dev)
 
@@ -316,97 +406,99 @@ class VmappedTrials:
         labels_train = torch.from_numpy(seed_labels).to(dev)  # [T,N]
         feats_val = labels_val = None
         if val_union is not None:
-            val_feats_union = self._encode_union(base, val_union, dm,
-                                                 spec.normalize_features, train=False)
+            val_feats_union = self._encode_union(base, val_union, dm, normalize,
+                                                 train=False)
             feats_val = val_feats_union[torch.from_numpy(val_index).to(dev)]
             labels_val = torch.from_numpy(val_labels).to(dev)
 
-        if self.on_before_train is not None and not spec.reencode_per_epoch:
+        if self.on_before_train is not None and not spec_cls.reencode_per_epoch:
             # a feature-cached head decodes no image from here on, so the
             # next group's decode can start; a re-encoding head decodes
             # every epoch, and two decodes would contend for the host
             self.on_before_train()
 
-        params = self._initial_params(spec)
-        with phase_timer("vmap.consts_prestage", device=dev):
-            consts = spec.trial_consts(feats_train, labels_train)
-        # warm start replaces top-level entries, so this shallow copy keeps
-        # the pre-warm-start state (the zero-shot block's)
-        zs_params = dict(params)
-        with phase_timer("vmap.warm_start", device=dev):
-            params = spec.warm_start(params, feats_train, labels_train)
-        for _, leaf in tree_leaves(params):
-            leaf.requires_grad_(True)
+        parts = self._parts = self._slices()
 
-        lr_vecs = spec.lr_vectors()
-        hps = spec.hp_tree()
-        opt = spec.optimizer()
-        groups = [(leaf, spec.lr_group(path.split("/")[0]))
-                  for path, leaf in tree_leaves(params)]
+        def rows(x, part):
+            return None if x is None else x[part.lo:part.hi].to(part.dev)
 
-        # zero-shot block per trial, before training as in the trainers
-        with phase_timer("vmap.zero_shot", device=dev), torch.no_grad():
-            zs_logits = spec.zero_shot_logits(zs_params, consts)
-            zs_logits = None if zs_logits is None else zs_logits.cpu().numpy()
+        for part in parts:
+            part.spec = spec_cls(part.view)
+        spec = self.spec = parts[0].spec
+        zs_parts = []
+        for part in parts:
+            sp, ft, lt = part.spec, rows(feats_train, part), rows(labels_train, part)
+            params = self._initial_params(sp)
+            with phase_timer("vmap.consts_prestage", device=part.dev):
+                part.consts = sp.trial_consts(ft, lt)
+            # warm start replaces top-level entries, so this shallow copy
+            # keeps the pre-warm-start state (the zero-shot block's)
+            zs_params = dict(params)
+            with phase_timer("vmap.warm_start", device=part.dev):
+                params = sp.warm_start(params, ft, lt)
+            for _, leaf in tree_leaves(params):
+                leaf.requires_grad_(True)
+            part.params = params
+            part.labels_train = lt
+            part.lr_vecs, part.hps, part.opt = sp.lr_vectors(), sp.hp_tree(), sp.optimizer()
+            part.groups = [(leaf, sp.lr_group(path.split("/")[0]))
+                           for path, leaf in tree_leaves(params)]
+            # zero-shot block per trial, before training as in the trainers
+            with phase_timer("vmap.zero_shot", device=part.dev), torch.no_grad():
+                zs = sp.zero_shot_logits(zs_params, part.consts)
+                zs_parts.append(None if zs is None else zs.cpu().numpy())
+        zs_logits = None if zs_parts[0] is None else np.concatenate(zs_parts)
 
         n = int(feats_train.shape[1])
         slices = common.batch_slices(n, int(config.dataloader.batch_size_train))
         n_batches = len(slices)
         max_epoch = spec.max_epoch()
         step = 0
-        losses = None
         for epoch in range(max_epoch):
             if spec.reencode_per_epoch and epoch > 0:
                 # fresh augmentations: one shared union pass per epoch
                 with phase_timer("vmap.train.reencode", device=dev):
-                    union_feats = self._encode_union(base, union_items, dm,
-                                                     spec.normalize_features)
+                    union_feats = self._encode_union(base, union_items, dm, normalize)
                 feats_train = union_feats[train_idx]
             # per-trial epoch shuffle (seed-deterministic), the JAX runner's
             perms = torch.from_numpy(np.stack([
                 np.random.default_rng((seed, epoch)).permutation(n) for seed in self.seeds
             ])).to(dev)
-            feats_e = torch.take_along_dim(feats_train, perms[:, :, None], dim=1)
-            labels_e = torch.take_along_dim(labels_train, perms, dim=1)
+            for part in parts:
+                pp = rows(perms, part)
+                part.feats_e = torch.take_along_dim(rows(feats_train, part),
+                                                    pp[:, :, None], dim=1)
+                part.labels_e = torch.take_along_dim(part.labels_train, pp, dim=1)
             with phase_timer("vmap.train.step", device=dev):
                 for b, (lo, hi) in enumerate(slices):
-                    facs = spec.lr_factors(epoch, b, n_batches)
-                    lrs = {g: lr_vecs[g] * torch.from_numpy(np.asarray(facs[g])).to(dev)
-                           for g in facs}
-                    mb = _divisor_le(hi - lo, spec.microbatch_images(hi - lo))
-                    if mb < hi - lo and epoch == 0 and b == 0:
-                        print(f"[vmap-trials:{self.method}] gradient accumulation: "
-                              f"{mb} images per backward (batch {hi - lo})")
-                    # Σ (n_i/B)·grad_i over the micro-slices is the step's
-                    # batch-mean gradient; one slice when mb is the batch
-                    losses = 0.0
-                    for m_lo in range(lo, hi, mb):
-                        m_hi = min(hi, m_lo + mb)
-                        part = spec.loss(
-                            params, consts, feats_e[:, m_lo:m_hi], labels_e[:, m_lo:m_hi],
-                            lambda shape, i=step: self.draws("train", i, shape), hps)
-                        if mb < hi - lo:
-                            part = part * ((m_hi - m_lo) / (hi - lo))
-                        part.sum().backward()
-                        losses = losses + part.detach()
-                    opt.step([(leaf, lrs[g]) for leaf, g in groups])
+                    # each slice's step is issued on its device before the
+                    # next slice's: the devices run them side by side
+                    for part in parts:
+                        self._step(part, epoch, b, n_batches, lo, hi, step)
                     step += 1
             with phase_timer("vmap.train.epoch_end", device=dev):
-                spec.on_epoch_end(params, consts, epoch)
+                for part in parts:
+                    part.spec.on_epoch_end(part.params, part.consts, epoch)
                 if (epoch + 1) % 10 == 0 or epoch == 0:
+                    losses = np.concatenate([part.losses.detach().cpu().numpy()
+                                             for part in parts])
                     print(f"[vmap-trials:{self.method}] epoch {epoch + 1}/{max_epoch} "
-                          "loss per trial: "
-                          + " ".join(f"{v:.4f}" for v in losses.detach().cpu().numpy()))
+                          "loss per trial: " + " ".join(f"{v:.4f}" for v in losses))
 
         # final eval + per-trial metrics.json
-        params = tree_map(lambda v: v.detach(), params)
-        with phase_timer("vmap.finalize", device=dev):
-            params, eval_consts = spec.finalize(params, consts, feats_val, labels_val)
-        with phase_timer("vmap.final_eval", device=dev), torch.no_grad():
-            logits = spec.eval_logits(
-                params, eval_consts, lambda shape: self.draws("eval", 0, shape)
-            ).cpu().numpy()
-        self.params, self.consts = params, eval_consts
+        logit_parts = []
+        for part in parts:
+            params = tree_map(lambda v: v.detach(), part.params)
+            with phase_timer("vmap.finalize", device=part.dev):
+                part.params, part.consts = part.spec.finalize(
+                    params, part.consts, rows(feats_val, part), rows(labels_val, part))
+            with phase_timer("vmap.final_eval", device=part.dev), torch.no_grad():
+                logit_parts.append(part.spec.eval_logits(
+                    part.params, part.consts,
+                    lambda shape, v=part.view: v.draws("eval", 0, shape)).cpu().numpy())
+        logits = np.concatenate(logit_parts)
+        if len(parts) == 1:
+            self.params, self.consts = parts[0].params, parts[0].consts
         results = []
         for t, seed in enumerate(self.seeds):
             results.append(self._trial_result(t, seed, logits[t], zs_logits, spec,
@@ -415,6 +507,33 @@ class VmappedTrials:
         print(f"[vmap-trials:{self.method}] {t_trials} trials trained in "
               f"{time.time() - start_time:.1f}s")
         return results
+
+    def _step(self, part: _SliceRun, epoch: int, b: int, n_batches: int,
+              lo: int, hi: int, step: int) -> None:
+        """One optimizer step of one trial slice on batch [lo, hi)."""
+        sp, dev = part.spec, part.dev
+        facs = sp.lr_factors(epoch, b, n_batches)
+        lrs = {g: part.lr_vecs[g] * torch.from_numpy(np.asarray(facs[g])).to(dev)
+               for g in facs}
+        mb = _divisor_le(hi - lo, sp.microbatch_images(hi - lo))
+        if mb < hi - lo and epoch == 0 and b == 0 and part.lo == 0:
+            print(f"[vmap-trials:{self.method}] gradient accumulation: "
+                  f"{mb} images per backward (batch {hi - lo})")
+        # Σ (n_i/B)·grad_i over the micro-slices is the step's batch-mean
+        # gradient; one slice when mb is the batch
+        losses = 0.0
+        for m_lo in range(lo, hi, mb):
+            m_hi = min(hi, m_lo + mb)
+            loss = sp.loss(
+                part.params, part.consts, part.feats_e[:, m_lo:m_hi],
+                part.labels_e[:, m_lo:m_hi],
+                lambda shape, i=step: part.view.draws("train", i, shape), part.hps)
+            if mb < hi - lo:
+                loss = loss * ((m_hi - m_lo) / (hi - lo))
+            loss.sum().backward()
+            losses = losses + loss.detach()
+        part.opt.step([(leaf, lrs[g]) for leaf, g in part.groups])
+        part.losses = losses
 
     def _trial_result(self, t, seed, logits, zs_logits, spec, trial_outdirs,
                       base_dm, start_time):
@@ -455,9 +574,10 @@ class VmappedTrials:
         if getattr(cfg.train, "enable_adapter_checkpoints", False):
             # the in-process trainer's trainable_state layout, so
             # --eval-only --model-dir reloads it
+            part = next(q for q in self._parts if q.lo <= t < q.hi)
             state = spec.export_state(
-                tree_map(lambda x: x[t].detach().cpu().numpy(), self.params),
-                tree_map(lambda x: x[t].detach().cpu().numpy(), self.consts),
+                tree_map(lambda x: x[t - part.lo].detach().cpu().numpy(), part.params),
+                tree_map(lambda x: x[t - part.lo].detach().cpu().numpy(), part.consts),
             )
             if state is not None:
                 writer.trainable_state = lambda s=state: s

@@ -93,13 +93,17 @@ def split_fingerprint(impaths: List[str], labels: List[int]) -> str:
 
 
 def cache_key(config, split_items, weights_tag: str, *, device_type: str,
-              int8: bool) -> str:
+              int8: bool, shard_devices: int = 0) -> str:
     """Disk and memo key of one (weights, preprocessing, split, tower)
-    extraction: the JAX package's key for an unsharded extraction, then
-    ``torch-<device_type>``.
+    extraction: the JAX package's key, then ``torch-<device_type>``.
 
     ``int8``: whether the int8 tower really encodes this split (the flag and
-    a ViT tower), so an fp32 encode is never stored under the int8 label."""
+    a ViT tower), so an fp32 encode is never stored under the int8 label.
+
+    ``shard_devices``: above 1 when extraction splits the batch over that
+    many local devices (``parallel/mesh.py``); the key then carries the JAX
+    package's ``dp<N>`` part. Chunked launches may differ from one launch at
+    the ULP level, so entries of either provenance never alias."""
     impaths = [it.impath for it in split_items]
     labels = [it.label for it in split_items]
     norm = hashlib.sha256(
@@ -115,6 +119,8 @@ def cache_key(config, split_items, weights_tag: str, *, device_type: str,
     ]
     if int8:
         parts.append("int8")
+    if shard_devices and shard_devices > 1:
+        parts.append(f"dp{shard_devices}")
     parts.append(f"torch-{device_type}")
     return "_".join(parts)
 

@@ -184,13 +184,23 @@ class BaseTrainer:
 
     def _encode_plan(self) -> Dict:
         """Extraction decisions, frozen once per loaded tower: int8 or not,
-        and the int8 tower's weights, quantized once."""
+        the int8 tower's weights, quantized once, and the devices the batch
+        splits over (``parallel/mesh.extraction_shard_devices``). The
+        feature-cache key and the encode read this one snapshot, so a key
+        always describes the encode that ran. A weight reload drops the
+        plan, and with it the quantized tower and the replicas."""
         if self._encode_plan_cached is None:
+            from clip_gp_tpu_torch.parallel.mesh import extraction_shard_devices
+
             int8 = self._int8_effective()
+            devices = extraction_shard_devices()
             self._encode_plan_cached = {
                 "int8": int8,
                 "qvisual": (quantized.quantize_visual(self.clip_model, self.clip_arch)
                             if int8 else None),
+                "shard_device_list": devices,
+                "shard_devices": len(devices) if devices else 0,
+                "sharded": None,
             }
         return self._encode_plan_cached
 
@@ -208,6 +218,7 @@ class BaseTrainer:
         key = feature_cache.cache_key(
             self.config, loader.data_source, getattr(self, "weights_tag", "default"),
             device_type=self.device.type, int8=self._encode_plan()["int8"],
+            shard_devices=self._encode_plan()["shard_devices"],
         )
         # a second trainer missing the memo for a split that another thread
         # is encoding waits for that encode
@@ -239,6 +250,28 @@ class BaseTrainer:
                     return quantized.encode_image_q8(plan["qvisual"],
                                                      self.clip_arch, x)
                 return self.clip_model.encode_image(x)
+
+        if plan["shard_devices"] > 1:
+            # the batch splits over the plan's devices, each chunk on that
+            # device's replica of the image tower (the quantized tree, or
+            # the visual module as CLIP.encode_image runs it), made once
+            # per plan
+            if plan["sharded"] is None:
+                from clip_gp_tpu_torch.parallel.mesh import maybe_sharded_encode
+
+                arch, preprocess = self.clip_arch, self.preprocess
+
+                def encode_on(tower, images: torch.Tensor) -> torch.Tensor:
+                    with torch.no_grad():
+                        x = preprocess(images)
+                        if plan["int8"]:
+                            return quantized.encode_image_q8(tower, arch, x)
+                        return tower(x.to(torch.float32)).float()
+
+                plan["sharded"] = maybe_sharded_encode(
+                    encode_on, plan["qvisual"] if plan["int8"] else self.clip_model.visual,
+                    devices=plan["shard_device_list"])
+            encode = plan["sharded"]
 
         with phase_timer("feature_extraction", device=self.device):
             feats, labels = extract_with(encode, loader)

@@ -444,6 +444,34 @@ def test_each_call_on_the_card_counts_one_launch(device):
                            "flash_attention": 0, "fused_attention_block": 0}
 
 
+def test_k1_launches_on_its_tensors_device_from_a_thread_on_another(device):
+    """A thread whose current device is cuda:0 launches K1 for tensors on
+    cuda:1: the wrapper enters the tensors' device around the launch, so the
+    shared-memory opt-in and the launch land there, and the result equals
+    the plain version on cuda:1."""
+    import threading
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    other = torch.device("cuda", 1)
+    p = _inputs(3, 77, 512, torch.float32, other)
+    out = {}
+
+    def run():
+        torch.cuda.set_device(0)
+        with torch.no_grad():
+            out["k1"] = _k1(p, 8)
+        torch.cuda.synchronize(other)
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    assert out["k1"].device == other
+    with torch.no_grad():
+        _assert_close(out["k1"], _k1(p, 8, fa.ln_attention_block_plain),
+                      torch.float32)
+
+
 def test_grad_requiring_input_on_the_card_runs_the_backward_kernels(device):
     p = _inputs(4, 24, 128, torch.float32, device, causal=True)
     p["x"].requires_grad_(True)

@@ -240,11 +240,35 @@ def test_cocoop_sweep_trains_on_the_trial_axis(tmp_path, monkeypatch):
         assert payload["metrics"]["top1_acc"] == payload["metrics"]["top1_acc"]
 
 
-def test_multi_gpu_options_raise(tmp_path):
+def test_multi_gpu_options_raise(tmp_path, capsys, monkeypatch, request):
+    """``group_parallel`` and ``trial_mesh`` run on one device (the JAX
+    scheduler's documented behaviour: workers may outnumber devices, and a
+    trial mesh without a second device runs the group unsharded); only the
+    two together raise, as in the JAX package."""
+    monkeypatch.setenv("CLIP_GP_TPU_TORCH_FORCE_CPU", "1")
+    monkeypatch.setenv("CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS", "1")
+    import torch
+
+    # small CPU ops: one intra-op thread keeps them from oversubscribing a
+    # host whose other cores run other test files
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
     trials, _ = tsweep.build_trials(_sweep_cfg(tmp_path, "TaskRes", {}))
-    for kwargs in ({"group_parallel": 2}, {"trial_mesh": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-            tsweep.run_trials_vmapped(trials, **kwargs)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tsweep.run_trials_vmapped(trials, group_parallel=2, trial_mesh=2)
+    for name, kwargs, shots, line in (
+            ("gp", {"group_parallel": 2}, (1, 2),
+             "scheduling 2 trial group(s) over 2 worker(s) / 1 device(s)"),
+            ("mesh", {"trial_mesh": 2}, (1,),
+             "within the device budget; running unsharded")):
+        trials, _ = tsweep.build_trials(_sweep_cfg(tmp_path, "TaskRes", {}, name=name,
+                                                   shots=shots))
+        results = tsweep.run_trials_vmapped(trials, **kwargs)
+        out = capsys.readouterr().out
+        assert line in out
+        assert [r["backend"] for r in results] == ["vmap"] * len(trials)
+        assert all((Path(r["out_dir"]) / "metrics.json").exists() for r in results)
 
 
 @pytest.mark.parametrize("launcher", [None, "env CLIP_GP_TPU_HOST={device}"],
