@@ -177,10 +177,26 @@ exits non-zero before printing any result. Phases, each raising on failure:
    equal, SWEEP_METRIC_TOL; path ``multi_trial_mesh_2``) and K1 launched
    from a thread whose current device is another; with one device the
    line says which of these did not run and why;
-13. output: one ``{"kernels": [...]}`` line, then as the last line
+13. scripts: every module of ``clip_gp_tpu_torch.scripts`` through its
+   ``run(...)`` at full width (ViT-B/16 and RN50 towers) with classes,
+   images, epochs and steps cut, each report printed as a ``[scripts]``
+   line with the phase's seconds: ``quick_check`` (eight OK),
+   ``parity_check`` (``--convert`` of phase 9's ``rn50_state_dict()``
+   ``.pt``, then config 1 on a Caltech101-layout tree, NO-REF, then OK
+   against a fabricated reference), ``bench_backbones`` (ViT-B/16 and
+   RN50 at B=128), ``bench_int8_encode`` (int8 against bf16 features at
+   cosine SCRIPTS_INT8_COS), ``bench_gp``, ``bench_trial``,
+   ``profile_vmap_group``, ``bench_sweep``, ``bench_coop_vmap``,
+   ``bench_cocoop_vmap``, ``bench_cocoop``, ``bench_cocoop_profile``,
+   ``bench_fused_vjp`` (kernels against library gradients within
+   SCRIPTS_GRAD_TOL of the largest), ``bench_sweep_methods`` (one dataset
+   per family), ``bench_cocoop_imagenet_scale`` (K=100, T=2) and
+   ``bench_sweep_projection`` (one dataset at two shot counts); one path,
+   ``scripts``, which must launch K1-K6;
+14. output: one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-12 sets the launch counts to 0 just before each run it
+Each of phases 4-13 sets the launch counts to 0 just before each run it
 drives and reads them just after; a kernel's ``launches`` in the JSON line is
 the sum over those runs, and ``launches_by_path`` gives each.
 """
@@ -3682,6 +3698,148 @@ def phase_multi(smi, backbone="ViT-B/16"):
     return by_path
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+SCRIPTS_INT8_COS = 0.999
+SCRIPTS_GRAD_TOL = 1e-4
+
+
+def _caltech_tree(root, per_class=16, size=64):
+    """A Caltech101-layout tree (``caltech-101/101_ObjectCategories``): two
+    classes and the two folders the catalog ignores."""
+    for folder in ("airplanes", "Faces", "BACKGROUND_Google", "Faces_easy"):
+        _write_pngs(os.path.join(root, "caltech-101", "101_ObjectCategories", folder),
+                    per_class, size)
+
+
+def phase_scripts(smi, pt):
+    """Phase 13: every module of ``clip_gp_tpu_torch.scripts`` through its
+    ``run(...)`` at full width (ViT-B/16 and RN50 towers) with classes,
+    images, epochs and steps cut, each report printed as a ``[scripts]``
+    line; ``pt`` is the random RN50 ``.pt`` of phase 9, which the parity
+    harness converts. Returns the launches of the whole phase (path
+    ``scripts``)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from clip_gp_tpu_torch.scripts import (
+        bench_backbones,
+        bench_cocoop,
+        bench_cocoop_imagenet_scale,
+        bench_cocoop_profile,
+        bench_cocoop_vmap,
+        bench_coop_vmap,
+        bench_fused_vjp,
+        bench_gp,
+        bench_int8_encode,
+        bench_sweep,
+        bench_sweep_methods,
+        bench_sweep_projection,
+        bench_trial,
+        parity_check,
+        profile_vmap_group,
+        quick_check,
+    )
+
+    def quiet(fn, *args, **kwargs):
+        """``fn``'s report, its own output kept off the smoke's."""
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    def line(name, report, seconds):
+        log(f"[scripts] {name} ({seconds:.2f} s) {json.dumps(report)}; {smi}")
+
+    runs = [
+        ("bench_backbones", bench_backbones.run, dict(
+            backbones=("ViT-B/16", "RN50"), batches=(128,))),
+        ("bench_int8_encode", bench_int8_encode.run, dict(
+            batch=64, timed_iters=5, windows=2, archs=("ViT-B/16",))),
+        ("bench_gp", bench_gp.run, dict(epochs=10, timed_steps=5)),
+        ("bench_trial", bench_trial.run, dict(
+            num_classes=4, images_per_class=12, shots=4, epochs=3)),
+        ("profile_vmap_group", profile_vmap_group.run, dict(
+            shots=2, classes=4, images_per_class=12, epochs=3)),
+        ("bench_sweep", bench_sweep.run, dict(
+            num_classes=4, images_per_class=12, shots=4, epochs=3)),
+        ("bench_coop_vmap", bench_coop_vmap.run, dict(
+            epochs=1, classes=10, shots=1, images_per_class=4)),
+        ("bench_cocoop_vmap", bench_cocoop_vmap.run, dict(
+            epochs=1, classes=10, shots=1, images_per_class=4)),
+        ("bench_cocoop", bench_cocoop.run, dict(steps=1)),
+        ("bench_cocoop_profile", bench_cocoop_profile.run, dict(
+            steps=1, eval_rows=32)),
+        ("bench_fused_vjp", bench_fused_vjp.run, dict(t=2, k=50, steps=2, reps=1)),
+        ("bench_sweep_methods", bench_sweep_methods.run, dict(
+            seeds=[1, 2], shots=[1], epochs=1, prompt_epochs=1, smoke=True)),
+        ("bench_cocoop_imagenet_scale", bench_cocoop_imagenet_scale.run, dict(
+            seeds=[1, 2], classes=100)),
+        # decode-ahead runs in phase 11
+        ("bench_sweep_projection", bench_sweep_projection.run, dict(
+            shots=(1, 2), classes=10, images_per_class=12, epochs=3,
+            decode_ahead=False)),
+    ]
+    os.environ["CLIP_GP_TPU_TORCH_ALLOW_RANDOM_WEIGHTS"] = "1"
+    start = time.perf_counter()
+    _reset_counts()
+    t0 = time.perf_counter()
+    report = quiet(quick_check.run, backbone="ViT-B/16", epochs=1)
+    line("quick_check", report, time.perf_counter() - t0)
+    if not all(report["results"].values()):
+        raise RuntimeError(f"quick_check: {report['results']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        npz = quiet(parity_check.convert, pt, os.path.join(tmp, "RN50.npz"))
+        convert_s = time.perf_counter() - t0
+        _caltech_tree(tmp)
+        argv = dict(root=tmp, output_root=os.path.join(tmp, "parity"),
+                    opts=["TRAINER.ADAPTER.CLIP_ADAPTER_EPOCHS", "2",
+                          "TRAINER.ADAPTER.NUM_TEMPLATES", "2",
+                          "MODEL.INIT_WEIGHTS", npz])
+        first = quiet(parity_check.run, 1, **argv)
+        trial = parity_check.parity_trials(1)[0]["name"]
+        with open(os.path.join(tmp, "parity", trial, "metrics.json")) as f:
+            metrics = json.load(f)["metrics"]
+        os.makedirs(os.path.join(tmp, "ref", trial))
+        with open(os.path.join(tmp, "ref", trial, "metrics.json"), "w") as f:
+            json.dump({"metrics": {"top1_acc": metrics["top1_acc"] + 0.2,
+                                   "ece": metrics["ece"] - 0.1,
+                                   "aece": metrics["aece"]}}, f)
+        report = quiet(parity_check.run, 1, reference_root=os.path.join(tmp, "ref"),
+                       **argv)
+        line("parity_check", {"convert": os.path.basename(npz),
+                              "convert_s": round(convert_s, 2),
+                              "no_ref": first["trials"], **report},
+             time.perf_counter() - t0)
+        if ([s for _, s, _ in first["trials"]] != ["NO-REF"]
+                or [s for _, s, _ in report["trials"]] != ["OK"]):
+            raise RuntimeError(f"parity_check: {first['trials']} then {report['trials']}")
+    for name, run, kwargs in runs:
+        t0 = time.perf_counter()
+        report = quiet(run, **kwargs)
+        line(name, report, time.perf_counter() - t0)
+        cosines = [v for k, v in report.items() if k.endswith("_min_cosine")]
+        if name == "bench_int8_encode" and min(cosines) < SCRIPTS_INT8_COS:
+            raise RuntimeError(f"int8 against bf16 features: cosine {min(cosines)} "
+                               f"< {SCRIPTS_INT8_COS}")
+        if name == "bench_fused_vjp" and report["grad_max_rel_err"] > SCRIPTS_GRAD_TOL:
+            raise RuntimeError(f"bench_fused_vjp: kernels against library gradients "
+                               f"{report['grad_max_rel_err']} > {SCRIPTS_GRAD_TOL}")
+    torch.cuda.synchronize()
+    launches = _counts()
+    log(f"[scripts] phase 13 took {time.perf_counter() - start:.2f} s; {smi}")
+    # K1-K6; K7 and K8 run only in phase 2's cells
+    _check_launches("scripts", launches, {name: 1 for name in (
+        "fused_ln_attention_block", "fused_ln_mlp", "ln_attn_bwd", "ln_mlp_bwd",
+        "q8_ln_attention_block", "q8_ln_mlp")})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3714,10 +3872,11 @@ def main() -> int:
         torch.save(rn50_state_dict()[1], pt)
         by_path["rn50_encode"] = phase_rn50_tower(device, smi, pt)
         by_path.update(phase_rn50_trainers(pt))
-    by_path["vit_clip_adapter"] = phase_vit_clip_adapter()
-    by_path.update(phase_single_trial())
-    by_path.update(phase_sweep(smi))
-    by_path.update(phase_multi(smi))
+        by_path["vit_clip_adapter"] = phase_vit_clip_adapter()
+        by_path.update(phase_single_trial())
+        by_path.update(phase_sweep(smi))
+        by_path.update(phase_multi(smi))
+        by_path["scripts"] = phase_scripts(smi, pt)
     for cell in cells:
         counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())

@@ -11,12 +11,16 @@ device without being told).
 ``local_devices()`` lists the devices a multi-device path spreads over: the
 CUDA devices, or the one CPU under ``CLIP_GP_TPU_TORCH_FORCE_CPU=1``; none
 on a host with neither, where ``resolve_device`` raises.
+
+``device_label()`` names the card a measurement ran on, as ``nvidia-smi``
+names it with its power limit, or ``"cpu"``: the scripts' reports carry it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import threading
 from typing import Iterator, List, Optional, Union
 
@@ -83,3 +87,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if device.type == "cuda":
         configure_cuda_numerics()
     return device
+
+
+def device_label(device: Optional[Union[str, torch.device]] = None) -> str:
+    """``"cpu"`` when ``device`` resolves to the CPU, else the first card's
+    ``"<name>, <power limit>"`` as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints it (a card may be set below its maximum
+    power, and then runs slower)."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]

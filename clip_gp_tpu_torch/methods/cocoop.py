@@ -193,6 +193,15 @@ class Trainer(PromptTrainer):
             labels_all.append(batch["label"])
         return torch.cat(logits_all).cpu().numpy(), np.concatenate(labels_all)
 
+    def _train_step(self, img_feats, labels):
+        """One update from a batch of normalized image features: the
+        conditional logits, cross-entropy, backward and optimizer step;
+        returns the detached (loss, logits)."""
+        logits = self._logits(img_feats)
+        loss = common.cross_entropy(logits, labels)
+        self._step(loss)
+        return loss.detach(), logits.detach()
+
     def run_epoch(self):
         losses = AverageMeter()
         loader = self.train_loader_x
@@ -201,10 +210,7 @@ class Trainer(PromptTrainer):
         for self.batch_idx, batch in enumerate(loader):
             img_feats = self._encode_norm(batch["img"])
             labels = torch.from_numpy(batch["label"].astype(np.int64)).to(self.device)
-            logits = self._logits(img_feats)
-            loss = common.cross_entropy(logits, labels)
-            self._step(loss)
-            loss, logits = loss.detach(), logits.detach()
+            loss, logits = self._train_step(img_feats, labels)
             losses.update(loss)
             meet_freq = (self.batch_idx + 1) % print_freq == 0
             if meet_freq or self.num_batches < print_freq:
