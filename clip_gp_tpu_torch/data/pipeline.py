@@ -110,6 +110,8 @@ class BatchLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict]:
+        from clip_gp_tpu_torch.runtime.profiling import span
+
         src = self.rng if self.rng is not None else random
         order = list(range(len(self.data_source)))
         if self.shuffle:
@@ -129,20 +131,24 @@ class BatchLoader:
         with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
             for b in range(n_batches):
                 idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
-                items = [self.data_source[i] for i in idxs]
-                rngs = [random.Random(item_seeds[i]) for i in idxs]
-                images = list(
-                    pool.map(
-                        lambda args: _load_one(args[0], self.transform, args[1]),
-                        zip(items, rngs),
+                # on the thread that iterates: the span closes before the
+                # batch is handed over
+                with span("data.decode_batch", images=len(idxs)):
+                    items = [self.data_source[i] for i in idxs]
+                    rngs = [random.Random(item_seeds[i]) for i in idxs]
+                    images = list(
+                        pool.map(
+                            lambda args: _load_one(args[0], self.transform, args[1]),
+                            zip(items, rngs),
+                        )
                     )
-                )
-                yield {
-                    "img": np.stack(images),
-                    "label": np.asarray([it.label for it in items], dtype=np.int32),
-                    "impath": [it.impath for it in items],
-                    "classname": [it.classname for it in items],
-                }
+                    batch = {
+                        "img": np.stack(images),
+                        "label": np.asarray([it.label for it in items], dtype=np.int32),
+                        "impath": [it.impath for it in items],
+                        "classname": [it.classname for it in items],
+                    }
+                yield batch
 
 
 class DataManager:

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from clip_gp_tpu_torch.models.tokenizer import tokenize
+from clip_gp_tpu_torch.runtime.profiling import span
 
 
 def extract_device_batch() -> int:
@@ -193,24 +194,40 @@ def extract_with(encode_fn, loader) -> Tuple[np.ndarray, np.ndarray]:
     ``extract_device_batch()`` images: encoding is per image, so the
     grouping cannot change results, and larger launches keep the GPU fed.
     The loader batch size still sets the host decode granularity.
-    ``encode_fn`` takes uint8 NHWC numpy images and returns a tensor."""
+    ``encode_fn`` takes uint8 NHWC numpy images and returns a tensor.
+
+    Spans (``runtime/profiling.py``): ``data.wait_batch`` while the loop
+    waits for the loader's next batch, ``tower.issue`` around each
+    ``encode_fn`` call (both with attribute ``images``) and ``data.to_host``
+    around the final copy, which waits for the device."""
     feats, labels = [], []
     buf: list = []
     device_batch = extract_device_batch()
 
     def flush():
         imgs = buf[0] if len(buf) == 1 else np.concatenate(buf)
-        feats.append(encode_fn(imgs))
+        with span("tower.issue", images=int(imgs.shape[0])):
+            feats.append(encode_fn(imgs))
         buf.clear()
 
-    for batch in loader:
+    batches = iter(loader)
+    while True:
+        with span("data.wait_batch") as waiting:
+            batch = next(batches, None)
+            if batch is None:
+                waiting.discard()  # the loader's end, not a batch
+            else:
+                waiting.attrs["images"] = int(batch["img"].shape[0])
+        if batch is None:
+            break
         buf.append(batch["img"])
         labels.append(batch["label"])
         if sum(b.shape[0] for b in buf) >= device_batch:
             flush()
     if buf:
         flush()
-    out = torch.cat(feats).float().cpu().numpy()
+    with span("data.to_host"):
+        out = torch.cat(feats).float().cpu().numpy()
     return out, np.concatenate(labels)
 
 

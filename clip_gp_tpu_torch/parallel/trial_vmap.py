@@ -94,7 +94,7 @@ from clip_gp_tpu_torch.parallel.trial_specs import (  # noqa: F401  (re-exported
     vmapped_gp_prestage,
     vmapped_tw_prestage,
 )
-from clip_gp_tpu_torch.runtime.profiling import phase_timer
+from clip_gp_tpu_torch.runtime.profiling import maybe_trace, phase_timer, span
 
 # serializes the global-RNG few-shot sampling window, as the JAX runner does
 _SPLIT_RNG_LOCK = threading.Lock()
@@ -348,6 +348,15 @@ class VmappedTrials:
 
     # ------------------------------------------------------------------
     def run(self, trial_outdirs: Optional[Sequence[str]] = None) -> List[Dict]:
+        """Train the group and write each trial's result, under one
+        ``vmap.group`` span (``runtime/profiling.py``), traced to
+        ``$CLIP_GP_TPU_TORCH_PROFILE_DIR/vmap/`` when that is set."""
+        with maybe_trace("vmap", device=self.device), span(
+                "vmap.group", method=self.method, shots=int(self.config.dataset.num_shots),
+                trials=int(self.t_trials), seeds=[int(s) for s in self.seeds]):
+            return self._run_group(trial_outdirs)
+
+    def _run_group(self, trial_outdirs: Optional[Sequence[str]]) -> List[Dict]:
         from clip_gp_tpu_torch.runtime.trainer_base import BaseTrainer
 
         config = self.config
@@ -473,8 +482,9 @@ class VmappedTrials:
                 for b, (lo, hi) in enumerate(slices):
                     # each slice's step is issued on its device before the
                     # next slice's: the devices run them side by side
-                    for part in parts:
-                        self._step(part, epoch, b, n_batches, lo, hi, step)
+                    with span("vmap.step", step=step):
+                        for part in parts:
+                            self._step(part, epoch, b, n_batches, lo, hi, step)
                     step += 1
             with phase_timer("vmap.train.epoch_end", device=dev):
                 for part in parts:
@@ -628,28 +638,30 @@ class DecodePrefetcher:
     def _produce(self) -> None:
         from clip_gp_tpu_torch.data.pipeline import BatchLoader
 
+        r = self.runner
         try:
-            r = self.runner
-            splits = r._build_per_seed_splits(needs_val=SPECS[r.method].needs_val)
-            with self._cv:
-                self._splits = splits
-                self._cv.notify_all()
-            union_items, dm = splits[0], splits[6]
-            loader = BatchLoader(
-                union_items, dm.tfm_train, r.config.dataloader.batch_size_train,
-                shuffle=False, drop_last=False,
-                num_workers=r.config.dataloader.num_workers, rng=r._aug_rng)
-            for batch in loader:
-                nbytes = int(batch["img"].nbytes)
+            with span("vmap.prefetch", seeds=[int(s) for s in r.seeds],
+                      shots=int(r.config.dataset.num_shots)):
+                splits = r._build_per_seed_splits(needs_val=SPECS[r.method].needs_val)
                 with self._cv:
-                    while (self._batches and self._bytes + nbytes > self._budget
-                           and not self._cancelled):
-                        self._cv.wait(0.5)
-                    if self._cancelled:
-                        return
-                    self._batches.append(batch)
-                    self._bytes += nbytes
+                    self._splits = splits
                     self._cv.notify_all()
+                union_items, dm = splits[0], splits[6]
+                loader = BatchLoader(
+                    union_items, dm.tfm_train, r.config.dataloader.batch_size_train,
+                    shuffle=False, drop_last=False,
+                    num_workers=r.config.dataloader.num_workers, rng=r._aug_rng)
+                for batch in loader:
+                    nbytes = int(batch["img"].nbytes)
+                    with self._cv:
+                        while (self._batches and self._bytes + nbytes > self._budget
+                               and not self._cancelled):
+                            self._cv.wait(0.5)
+                        if self._cancelled:
+                            return
+                        self._batches.append(batch)
+                        self._bytes += nbytes
+                        self._cv.notify_all()
         except BaseException as e:
             # raised again in the consumer; an exit or interrupt ends the
             # thread too

@@ -21,6 +21,8 @@ Usage (on the GPU; ``CLIP_GP_TPU_TORCH_FORCE_CPU=1`` runs it on the CPU):
 (``models/quantized.py``). The JAX script's persistent XLA compile cache
 (``compile_cache.enable()``) has no counterpart here: PyTorch runs eagerly
 and the CUDA kernels are built once into ``build/kernels/``.
+``CLIP_GP_TPU_TORCH_PROFILE_DIR=<dir>`` writes a ``torch.profiler`` trace of
+the job (extraction and logits) under ``<dir>/predict/``.
 """
 
 from __future__ import annotations
@@ -108,6 +110,7 @@ def main(argv=None):
     from clip_gp_tpu_torch.data.datum import Datum
     from clip_gp_tpu_torch.data.pipeline import BatchLoader, build_data_manager
     from clip_gp_tpu_torch.data.transforms import build_transform
+    from clip_gp_tpu_torch.runtime.profiling import maybe_trace
     from clip_gp_tpu_torch.runtime.trainer_base import (
         read_checkpoint_classnames,
         resolve_checkpoint_path,
@@ -170,13 +173,14 @@ def main(argv=None):
     if trainer.load_model(str(model_dir), epoch=args.load_epoch) == 0:
         raise SystemExit("checkpoint reload failed")
 
-    if eval_loader is not None:
-        _, feats = trainer.encode_images_batched(eval_loader)
-        with torch.no_grad():
-            logits = trainer.predict_logits(
-                torch.from_numpy(feats).to(trainer.device)).cpu().numpy()
-    else:
-        _, logits, _ = trainer.extract_features(args.split)
+    with maybe_trace("predict", device=trainer.device):
+        if eval_loader is not None:
+            _, feats = trainer.encode_images_batched(eval_loader)
+            with torch.no_grad():
+                logits = trainer.predict_logits(
+                    torch.from_numpy(feats).to(trainer.device)).cpu().numpy()
+        else:
+            _, logits, _ = trainer.extract_features(args.split)
     z = logits - logits.max(axis=1, keepdims=True)
     e = np.exp(z)
     probs = e / e.sum(axis=1, keepdims=True)

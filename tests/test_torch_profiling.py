@@ -3,7 +3,7 @@ the JAX package's.
 
 The three cases of ``tests/test_profiling.py`` run on the port's module
 (``maybe_trace`` writes a ``torch.profiler`` Chrome trace instead of a
-``jax.profiler`` one), then one CLI run per package on TEST-ViT (the
+``jax.profiler`` one, with a span's name on its timeline), then one CLI run per package on TEST-ViT (the
 Adapter, 1 epoch) must time the same phases the same number of times:
 ``feature_extraction`` once per split extraction (test, then train) and
 ``train_epochs`` once.
@@ -57,7 +57,7 @@ def test_maybe_trace_noop_without_env(monkeypatch, tmp_path):
 
 def test_maybe_trace_writes_profile(monkeypatch, tmp_path):
     monkeypatch.setenv("CLIP_GP_TPU_TORCH_PROFILE_DIR", str(tmp_path))
-    with profiling.maybe_trace("unit"), profiling.annotate("unit_range"):
+    with profiling.maybe_trace("unit"), profiling.span("unit_range"):
         torch.ones(4).sum()
     traces = list((tmp_path / "unit").glob("*.json"))
     assert len(traces) == 1
