@@ -3515,7 +3515,8 @@ def _native_check(smi, backbone):
                     "--num-templates", "2", "INPUT.SIZE", f"({res}, {res})",
                     "INPUT.TRANSFORMS", "['normalize']",
                     "TRAINER.ADAPTER.CLIP_ADAPTER_EPOCHS", "1",
-                    "DATALOADER.NUM_WORKERS", "2"])
+                    # decode in this process, where the patch counts the calls
+                    "DATALOADER.NUM_WORKERS", "0"])
         finally:
             os.environ.pop("CLIP_GP_TPU_TORCH_NATIVE_DECODE", None)
         launches = _counts()

@@ -1,17 +1,34 @@
-"""Host batch pipeline: threaded decode/augment feeding uint8 batches.
+"""Host batch pipeline: decode/augment in worker processes, uint8 batches out.
 
-Replaces torch DataLoader worker processes (ref: utils/data_manager.py:62-83)
-with a thread-pool prefetcher: PIL decode releases the GIL, batches are
-assembled into numpy arrays, and the device sees one uint8 NHWC array per
-batch (normalization happens on device, see transforms.py). Pillow is
-imported at the first decode, not with the module.
+Like torch DataLoader's worker processes (ref: utils/data_manager.py:62-83),
+``BatchLoader`` decodes in processes: Pillow holds the interpreter lock for
+most of an image's work (parsing the markers, convert, crop, the copy into
+numpy), so threads decode little faster than one. One pool of workers per
+process (``_pool``) serves every loader: it starts at the first loader that
+needs it, with the ``forkserver`` start method and only this module
+preloaded, so a process that has initialised CUDA and runs threads is never
+forked, and a worker imports neither the parent's ``__main__`` nor torch.
+A worker decodes a whole batch into one uint8 NHWC array and returns it
+through the pool's pipe; a loader keeps up to two batches per worker in
+flight and hands them over in order. ``num_workers=0`` decodes in the
+calling thread. Normalization happens on the device (transforms.py).
+Pillow is imported at the first decode, not with the module.
 """
 
 from __future__ import annotations
 
+import atexit
+import collections
 import concurrent.futures
+import io
+import itertools
+import multiprocessing.context
 import os
 import random
+import threading
+import time
+from concurrent.futures.process import BrokenProcessPool
+from multiprocessing import forkserver, popen_forkserver, reduction, spawn, util
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -78,8 +95,107 @@ def _load_one(item: Datum, transform, rng=None) -> np.ndarray:
     return transform(img)
 
 
+def _decode_batch(paths: List[str], seeds: List[int], transform, native: bool):
+    """One loader batch, in a worker (or inline): (uint8 [B, H, W, 3], the
+    decode's milliseconds). Each item's augmentation draws come from its own
+    ``random.Random(seed)``, so they do not depend on which worker runs it;
+    ``native`` is the loader's ``_USE_NATIVE``."""
+    global _USE_NATIVE
+    _USE_NATIVE = native
+    start = time.perf_counter()
+    images = np.stack([_load_one(Datum(impath=p, label=-1), transform, random.Random(s))
+                       for p, s in zip(paths, seeds)])
+    return images, 1e3 * (time.perf_counter() - start)
+
+
+class _Popen(popen_forkserver.Popen):
+    """``forkserver``'s launch, less the instruction to run the parent's
+    ``__main__`` in the child: a worker needs only this module, and an
+    entry script would import torch (or, without a ``__main__`` guard, run
+    itself) in every worker."""
+
+    def _launch(self, process_obj):
+        prep = spawn.get_preparation_data(process_obj._name)
+        prep.pop("init_main_from_name", None)
+        prep.pop("init_main_from_path", None)
+        buf = io.BytesIO()
+        multiprocessing.context.set_spawning_popen(self)
+        try:
+            reduction.dump(prep, buf)
+            reduction.dump(process_obj, buf)
+        finally:
+            multiprocessing.context.set_spawning_popen(None)
+        self.sentinel, w = forkserver.connect_to_new_process(self._fds)
+        # kept open as the child's sentinel of its parent, as the stock launch does
+        parent_w = os.dup(w)
+        self.finalizer = util.Finalize(self, util.close_fds, (parent_w, self.sentinel))
+        with open(w, "wb", closefd=True) as f:
+            f.write(buf.getbuffer())
+        self.pid = forkserver.read_signed(self.sentinel)
+
+
+class _WorkerProcess(multiprocessing.context.ForkServerProcess):
+    @staticmethod
+    def _Popen(process_obj):
+        return _Popen(process_obj)
+
+
+class _WorkerContext(multiprocessing.context.ForkServerContext):
+    Process = _WorkerProcess
+
+
+_POOL: Optional[concurrent.futures.ProcessPoolExecutor] = None
+_POOL_SIZE = 0
+_POOL_LOCK = threading.Lock()
+
+
+def pool_workers(num_workers: int) -> int:
+    """The worker processes a loader asked for ``num_workers`` uses: at most
+    the usable cores less one, which the launching thread keeps; 0 decodes
+    inline."""
+    if num_workers <= 0:
+        return 0
+    return min(num_workers, max(1, len(os.sched_getaffinity(0)) - 1))
+
+
+def _pool(workers: int) -> concurrent.futures.ProcessPoolExecutor:
+    """The process's pool, started (or grown) to at least ``workers``."""
+    global _POOL, _POOL_SIZE
+    with _POOL_LOCK:
+        if _POOL is None or _POOL_SIZE < workers:
+            if _POOL is not None:
+                _POOL.shutdown(wait=False)  # its queued batches still finish
+            ctx = _WorkerContext()
+            ctx.set_forkserver_preload([__name__])
+            _POOL = concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx)
+            _POOL_SIZE = workers
+        return _POOL
+
+
+def _discard(pool) -> None:
+    """Drop a broken pool; the next loader starts a new one."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is pool:
+            _POOL = None
+    pool.shutdown(wait=False, cancel_futures=True)
+
+
+@atexit.register
+def _shutdown() -> None:
+    global _POOL
+    with _POOL_LOCK:
+        pool, _POOL = _POOL, None
+    if pool is not None:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
 class BatchLoader:
-    """Iterable over dict batches {img: uint8 [B,H,W,3], label: int32 [B], ...}."""
+    """Iterable over dict batches {img: uint8 [B,H,W,3], label: int32 [B], ...}.
+
+    ``num_workers`` worker processes of the shared pool (``pool_workers``)
+    decode up to ``2 * workers`` batches ahead of the consumer; 0 decodes
+    each batch in the calling thread when it is asked for."""
 
     def __init__(
         self,
@@ -96,7 +212,7 @@ class BatchLoader:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last and len(data_source) >= batch_size
-        self.num_workers = max(1, num_workers)
+        self.num_workers = num_workers
         # optional private stream: callers that iterate loaders concurrently
         # (the sweep's group-parallel workers) pass their own Random so the
         # shuffle/item-seed draws stay deterministic under any interleaving;
@@ -117,8 +233,8 @@ class BatchLoader:
         if self.shuffle:
             src.shuffle(order)
         # one deterministic augmentation seed per item, drawn sequentially
-        # from the (run-seeded) stream BEFORE threading — worker-thread
-        # interleaving can no longer change augmentation draws between runs.
+        # from the (run-seeded) stream BEFORE any task is sent — which worker
+        # decodes an item can no longer change its augmentation draws.
         # Deterministic transforms (uses_rng=False: the eval/test path) draw
         # NOTHING: in the reference, evaluation never consumes python
         # `random`, so an extra eval pass must not shift later training
@@ -127,28 +243,43 @@ class BatchLoader:
             item_seeds = [src.getrandbits(63) for _ in order]
         else:
             item_seeds = [0] * len(order)
-        n_batches = len(self)
-        with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
-            for b in range(n_batches):
-                idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
-                # on the thread that iterates: the span closes before the
-                # batch is handed over
-                with span("data.decode_batch", images=len(idxs)):
+        batches = [order[b * self.batch_size : (b + 1) * self.batch_size]
+                   for b in range(len(self))]
+        tasks = (([self.data_source[i].impath for i in idxs], [item_seeds[i] for i in idxs],
+                  self.transform, _USE_NATIVE) for idxs in batches)
+        workers = pool_workers(self.num_workers)
+        ahead: collections.deque = collections.deque()  # (pool, future), in order
+        try:
+            for idxs in batches:
+                for task in itertools.islice(tasks, 2 * workers - len(ahead)):
+                    pool = _pool(workers)
+                    ahead.append((pool, pool.submit(_decode_batch, *task)))
+                pool, future = ahead.popleft() if workers else (None, None)
+                # the hand-over, on the thread that iterates: ``ready`` says
+                # whether the batch was decoded before it was asked for,
+                # ``decode_ms`` how long its decode took
+                with span("data.decode_batch", images=len(idxs),
+                          ready=future is not None and future.done()) as handing:
+                    if future is None:
+                        images, handing.attrs["decode_ms"] = _decode_batch(*next(tasks))
+                    else:
+                        try:
+                            images, handing.attrs["decode_ms"] = future.result()
+                        except BrokenProcessPool:
+                            _discard(pool)
+                            raise
                     items = [self.data_source[i] for i in idxs]
-                    rngs = [random.Random(item_seeds[i]) for i in idxs]
-                    images = list(
-                        pool.map(
-                            lambda args: _load_one(args[0], self.transform, args[1]),
-                            zip(items, rngs),
-                        )
-                    )
                     batch = {
-                        "img": np.stack(images),
+                        "img": images,
                         "label": np.asarray([it.label for it in items], dtype=np.int32),
                         "impath": [it.impath for it in items],
                         "classname": [it.classname for it in items],
                     }
                 yield batch
+        finally:
+            # a consumer that stops early leaves no batch queued in the pool
+            for _, future in ahead:
+                future.cancel()
 
 
 class DataManager:

@@ -7,7 +7,8 @@ uint8 to the device quarters host→device transfer volume versus the
 reference's host-side float normalize (ref: utils/transforms.py).
 
 PIL is imported inside the host transforms only, so the device half (and
-every module that imports it) works on a host without Pillow.
+every module that imports it) works on a host without Pillow; torch inside
+the device half only, so a loader's worker process never imports it.
 
 Pipeline parity (ref: utils/transforms.py:20-97): train transforms are chosen
 by config list (random_resized_crop scale 0.08–1, random_crop, random_flip,
@@ -21,10 +22,9 @@ from __future__ import annotations
 import math
 import random
 from functools import partial
-from typing import Callable, List, Tuple
+from typing import Tuple
 
 import numpy as np
-import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -168,83 +168,90 @@ def color_jitter(
     return img
 
 
-def build_transform(config, is_train: bool = False) -> Callable[[Image.Image], np.ndarray]:
-    """PIL image → uint8 HWC array of ``config.input.size``."""
-    size = tuple(config.input.size)
-    interpolation = _interp(config.input.interpolation)
+class HostTransform:
+    """PIL image → uint8 HWC array of ``size``: the train path's augmentations
+    in ``names`` order, or (``names`` None) the test path's shortest-side
+    resize and center crop. A module-level class, so that a loader's worker
+    process can unpickle it.
 
-    if is_train:
-        names: List[str] = list(config.input.transforms)
+    ``uses_rng``: whether the loader draws a per-item seed for it (the test
+    path draws nothing). ``native_target`` / ``native_rrc``: the square
+    bicubic paths the native fused JPEG decode can take (data/pipeline.py),
+    else None."""
 
-        def train_tfm(img: Image.Image, rng=random) -> np.ndarray:
-            # rng is a per-item Random from the loader so augmentation is
-            # deterministic under the run seed regardless of worker-thread
-            # interleaving
-            from PIL import Image
-
-            applied_spatial = False
-            for name in names:
-                if name == "random_resized_crop":
-                    img = random_resized_crop(
-                        img, size, interpolation=interpolation, rng=rng
-                    )
-                    applied_spatial = True
-                elif name == "random_crop":
-                    img = random_crop(img, size, rng=rng)
-                    applied_spatial = True
-                elif name == "random_flip":
-                    if rng.random() < 0.5:
-                        img = img.transpose(Image.FLIP_LEFT_RIGHT)
-                elif name == "random_rotation":
-                    # torchvision RandomRotation's executed default
-                    # interpolation is NEAREST, not bilinear
-                    img = img.rotate(rng.uniform(-15, 15), resample=Image.NEAREST)
-                elif name == "color_jitter":
-                    img = color_jitter(img, rng=rng)
-                # "normalize" happens on device
-            if not applied_spatial or img.size != (size[1], size[0]):
-                img = resize_shortest(img, size[0], interpolation)
-                img = center_crop(img, size)
-            return np.asarray(img.convert("RGB"), dtype=np.uint8)
-
-        spatial_names = [n for n in names if n != "normalize"]
-        if (
-            size[0] == size[1]
-            and config.input.interpolation == "bicubic"
-            and spatial_names in (
-                ["random_resized_crop"],
-                ["random_resized_crop", "random_flip"],
-            )
+    def __init__(self, size: Tuple[int, int], interpolation: str, names=None):
+        self.size = size
+        self.interpolation = interpolation
+        self.names = names
+        self.uses_rng = names is not None
+        square_bicubic = size[0] == size[1] and interpolation == "bicubic"
+        self.native_target = None
+        self.native_rrc = None
+        if names is None:
+            if square_bicubic:
+                # deterministic square resize+crop
+                self.native_target = size[0]
+        elif square_bicubic and [n for n in names if n != "normalize"] in (
+            ["random_resized_crop"],
+            ["random_resized_crop", "random_flip"],
         ):
-            # eligible for the native fused decode→crop→resize(→flip) path
-            # (data/pipeline.py); the window/flip RNG draws stay in Python
-            # via sample_rrc_box so PIL and native consume the same stream
-            train_tfm.native_rrc = {
-                "target": size[0],
-                "flip": "random_flip" in names,
-            }
-        train_tfm.uses_rng = True
-        return train_tfm
+            # decode → crop → resize (→ flip) in one native pass; the
+            # window/flip RNG draws stay in Python via sample_rrc_box so PIL
+            # and native consume the same stream
+            self.native_rrc = {"target": size[0], "flip": "random_flip" in names}
 
-    def test_tfm(img: Image.Image, rng=None) -> np.ndarray:
-        img = resize_shortest(img, size[0], interpolation)
-        img = center_crop(img, size)
+    def __call__(self, img: Image.Image, rng=random) -> np.ndarray:
+        size = self.size
+        interpolation = _interp(self.interpolation)
+        if self.names is None:
+            img = resize_shortest(img, size[0], interpolation)
+            img = center_crop(img, size)
+            return np.asarray(img.convert("RGB"), dtype=np.uint8)
+        # rng is a per-item Random from the loader so augmentation is
+        # deterministic under the run seed regardless of which worker
+        # decodes the item
+        from PIL import Image
+
+        applied_spatial = False
+        for name in self.names:
+            if name == "random_resized_crop":
+                img = random_resized_crop(img, size, interpolation=interpolation, rng=rng)
+                applied_spatial = True
+            elif name == "random_crop":
+                img = random_crop(img, size, rng=rng)
+                applied_spatial = True
+            elif name == "random_flip":
+                if rng.random() < 0.5:
+                    img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            elif name == "random_rotation":
+                # torchvision RandomRotation's executed default
+                # interpolation is NEAREST, not bilinear
+                img = img.rotate(rng.uniform(-15, 15), resample=Image.NEAREST)
+            elif name == "color_jitter":
+                img = color_jitter(img, rng=rng)
+            # "normalize" happens on device
+        if not applied_spatial or img.size != (size[1], size[0]):
+            img = resize_shortest(img, size[0], interpolation)
+            img = center_crop(img, size)
         return np.asarray(img.convert("RGB"), dtype=np.uint8)
 
-    # deterministic: the loader must NOT burn per-item seeds from the
-    # run-seeded stream for this transform — in the reference, evaluation
-    # never touches python `random`, so an eval pass (EVAL_FREQ,
-    # best_val tracking, predict) must not shift later training draws
-    test_tfm.uses_rng = False
-    if size[0] == size[1] and config.input.interpolation == "bicubic":
-        # deterministic square resize+crop: eligible for the native fused
-        # JPEG decode path (see data/pipeline.py)
-        test_tfm.native_target = size[0]
-    return test_tfm
+
+def build_transform(config, is_train: bool = False) -> HostTransform:
+    """PIL image → uint8 HWC array of ``config.input.size``.
+
+    The test transform is deterministic: the loader must NOT burn per-item
+    seeds from the run-seeded stream for it (``uses_rng`` False) — in the
+    reference, evaluation never touches python ``random``, so an eval pass
+    (EVAL_FREQ, best_val tracking, predict) must not shift later training
+    draws."""
+    names = list(config.input.transforms) if is_train else None
+    return HostTransform(tuple(config.input.size), config.input.interpolation, names)
 
 
 def device_preprocess(images_u8, mean=CLIP_MEAN, std=CLIP_STD):
     """uint8 NHWC tensor → normalized float32 NHWC on the same device."""
+    import torch
+
     x = images_u8.to(torch.float32) / 255.0
     mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
     std = torch.tensor(std, dtype=torch.float32, device=x.device)

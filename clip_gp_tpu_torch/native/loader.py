@@ -46,8 +46,8 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # per-process AND per-thread tmp name: the sweep's subprocess backend
-        # can cold-build from N children at once, and the first native call
-        # usually happens inside BatchLoader's ThreadPoolExecutor workers —
+        # and BatchLoader's worker processes can cold-build from N processes
+        # at once, and one process's threads can too —
         # a pid-only tmp would let two in-process threads' linkers interleave
         # writes into one file and rename a corrupt .so into the hash-keyed
         # cache, permanently (it would never be rebuilt)

@@ -610,8 +610,10 @@ class DecodePrefetcher:
     it always admits one batch), so a large union streams. A producer error
     is raised again in the consumer, by ``wait_splits`` or ``batches``.
 
-    The producer competes with the training thread for the interpreter lock
-    where it runs Python; Pillow releases it while it decodes."""
+    The union loader decodes in ``BatchLoader``'s worker processes; the
+    producer thread only sends them the batches and takes the decoded arrays
+    back, so the interpreter lock it shares with the training thread is held
+    for little more than unpickling each batch."""
 
     def __init__(self, config, seeds, trial_overrides=None, method=None, **kwargs):
         self.runner = VmappedTrials(config, seeds, trial_overrides=trial_overrides,

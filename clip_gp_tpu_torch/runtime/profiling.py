@@ -27,7 +27,10 @@ The spans the program opens, by where the work happens: ``vmap.group``
 ``method``, ``shots``, ``trials``, ``seeds``), ``vmap.step`` (one step's
 host issue, attribute ``step``), ``vmap.prefetch`` (decode-ahead's producer
 thread, the ``seeds`` and ``shots`` of the group it decodes for),
-``data.decode_batch`` (a ``BatchLoader`` batch, attribute ``images``),
+``data.decode_batch`` (a ``BatchLoader`` batch handed over on the thread
+that iterates; attributes ``images``, ``ready``: whether a worker had
+decoded it before it was asked for, and ``decode_ms``: the decode's own
+time),
 ``data.wait_batch``, ``tower.issue`` and ``data.to_host`` (an extraction
 waiting for the loader, issuing the image tower and copying the features
 back), and every phase timer.

@@ -30,6 +30,7 @@ for path in (TESTS, ROOT):
     if str(path) not in sys.path:
         sys.path.insert(0, str(path))
 
+from _loader_helpers import Plain  # noqa: E402
 from test_torch_prefetch import _sweep  # noqa: E402
 import clip_gp_tpu_torch.parallel.trial_vmap as ttv  # noqa: E402
 from clip_gp_tpu_torch.data.datum import Datum  # noqa: E402
@@ -136,12 +137,6 @@ def test_extract_with_spans_each_batch(tmp_path, monkeypatch):
         Image.fromarray(rng.integers(0, 255, (6, 6, 3), dtype=np.uint8)).save(path)
         source.append(Datum(impath=str(path), label=i % 4))
 
-    class Plain:
-        uses_rng = False
-
-        def __call__(self, img, rng=None):
-            return np.asarray(img, dtype=np.uint8)
-
     loader = BatchLoader(source, Plain(), 3, num_workers=2)
     feats, labels = extract_with(
         lambda imgs: torch.from_numpy(imgs).float().mean(dim=(1, 2)), loader)
@@ -151,7 +146,7 @@ def test_extract_with_spans_each_batch(tmp_path, monkeypatch):
     assert len(waits) == len(decodes) == len(loader) == 7
     assert [w.attrs["images"] for w in sorted(waits, key=lambda s: s.start_ns)] == [3] * 6 + [2]
     assert sum(d.attrs["images"] for d in decodes) == 20
-    # the loader decodes on the thread that waits for it
+    # the loader hands each batch over on the thread that waits for it
     assert {d.parent for d in decodes} == {w.id for w in waits}
     assert [i.attrs["images"] for i in sorted(issues, key=lambda s: s.start_ns)] == [9, 9, 2]
     assert len(copies) == 1 and copies[0].start_ns >= max(i.end_ns for i in issues)
@@ -248,6 +243,10 @@ def _predict_log():
         _span(7, "feature_extraction", 3000, 3500),
         _span(8, "data.wait_batch", 3000, 3100, 7, 7),
         _span(9, "data.wait_batch", 3200, 3300, 7, 7),
+        _span(10, "data.decode_batch", 1010, 1150, 3, 2, images=4, ready=False, decode_ms=9.0),
+        _span(11, "data.decode_batch", 2010, 2100, 6, 5, images=4, ready=False, decode_ms=9.0),
+        _span(12, "data.decode_batch", 3090, 3100, 8, 7, images=4, ready=True, decode_ms=9.0),
+        _span(13, "data.decode_batch", 3290, 3300, 9, 7, images=3, ready=True, decode_ms=7.0),
     ]
 
 
@@ -270,6 +269,8 @@ READINGS = [
     ("decode_wait_share.predict", _predict_log, _predict_record, 30.0),
     # traced job: idle 250 ms of 500; inside its waits 150 - 50 + 50 ms
     ("idle_waiting_decode.predict", _predict_log, _predict_record, 60.0),
+    # the untraced jobs' batches: one of three not ready when asked for
+    ("decode_ahead_share.predict", _predict_log, _predict_record, 200.0 / 3),
 ]
 
 
@@ -291,7 +292,8 @@ def test_span_metrics_read_by_hand(monkeypatch, metric, log, record, value):
     assert read(record()) is None
     needed = {"union_decode_wait_s.sweep": "data.wait_batch", "gp_step_issue_ms.sweep": "vmap.step",
               "idle_in_step_issue.sweep": "vmap.step", "decode_wait_share.predict": "data.wait_batch",
-              "idle_waiting_decode.predict": "data.wait_batch"}[metric]
+              "idle_waiting_decode.predict": "data.wait_batch",
+              "decode_ahead_share.predict": "data.decode_batch"}[metric]
     _feed(monkeypatch, [s for s in log() if s.name != needed])
     assert read(record()) is None
     # the log dropped its oldest spans, through one that ended inside the
@@ -301,3 +303,12 @@ def test_span_metrics_read_by_hand(monkeypatch, metric, log, record, value):
     k = 1 + next(i for i, s in enumerate(ordered) if s.end_ns > last)
     _feed(monkeypatch, ordered[k:], dropped=k)
     assert read(record()) is None
+
+
+def test_decode_ahead_share_reads_nothing_without_ready(monkeypatch):
+    """A loader that decodes each batch when it is asked for logs its
+    ``data.decode_batch`` spans without ``ready``."""
+    on_demand = [s._replace(attrs={"images": s.attrs["images"]}) if s.name == "data.decode_batch"
+                 else s for s in _predict_log()]
+    _feed(monkeypatch, on_demand)
+    assert harness.reader("decode_ahead_share.predict").read(_predict_record()) is None
