@@ -255,6 +255,10 @@ KERNELS = {
         f"{CSRC}attention.cu",
         "clip_gp_tpu/ops/flash_attention.py:34",
     ),
+    "key_tiled_attention": (
+        f"{CSRC}attention.cu (attention_tiled_kernel)",
+        "clip_gp_tpu/ops/flash_attention.py:34",
+    ),
     "fused_attention_block": (
         f"{CSRC}ln_gemm.cu + {CSRC}gemm_tf32.cuh + {CSRC}attention.cu",
         "clip_gp_tpu/ops/flash_attention.py:174",
@@ -267,10 +271,15 @@ KERNELS = {
 # the template-encode batch (encode_templates' batch_size), and the trimmed
 # text tower's forward in a trial-batched CoOp step of phase 11 (T x K =
 # 4 x 100 prompts of 24 tokens, in the prompt tower's fp32) and in one
-# image chunk of a trial-batched CoCoOp step (T x C x K = 4 x 2 x 100)
+# image chunk of a trial-batched CoCoOp step (T x C x K = 4 x 2 x 100);
+# ViT-L/14@336px's image tower (577 tokens, past the strip kernel's 256, so
+# K1's attention takes the key-tiled core, fp32 only) at 64 images and at the
+# device batch, with the core alone beside K1 and K2
 SHAPES = [
     ("vit-b16", 32, 197, 768, 12, False, ("fp32", "bf16")),
     ("vit-b16", 512, 197, 768, 12, False, ("fp32", "bf16")),
+    ("vit-l14-336", 64, 577, 1024, 16, False, ("fp32",)),
+    ("vit-l14-336", 512, 577, 1024, 16, False, ("fp32",)),
     ("text", 256, 77, 512, 8, True, ("fp32", "bf16")),
     ("text-coop-sweep", 400, 24, 512, 8, True, ("fp32",)),
     ("text-cocoop-sweep", 800, 24, 512, 8, True, ("fp32",)),
@@ -651,10 +660,12 @@ def _attention_cost(b, h, n, dh, itemsize, masked):
             4 * b * h * n * dh * itemsize + (n * n * 4 if masked else 0))
 
 
-def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
+def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks,
+                  rate=None):
     """One phase-2 cell: the kernel against its plain version at
     TOLERANCES, then the kernel, the plain version and the library yardstick
-    timed. ``runs`` is (run_kernel, run_plain, run_library)."""
+    timed. ``runs`` is (run_kernel, run_plain, run_library); ``rate`` the
+    operations/s of the bound (default ``op_rate``)."""
     import torch
 
     run_kernel, run_plain, run_library = runs
@@ -670,7 +681,7 @@ def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
         ms = time_ms(run_kernel)
         plain_ms = time_ms(run_plain)
         library_ms = time_ms(run_library)
-    t_ops = flops / op_rate(peaks, dtype_name) * 1e3
+    t_ops = flops / (rate or op_rate(peaks, dtype_name)) * 1e3
     t_bytes = nbytes / peaks["bytes"] * 1e3
     cell = {
         "name": name,
@@ -702,6 +713,41 @@ def _forward_cell(kernel, name, shape, dtype_name, runs, flops, nbytes, peaks):
     return cell
 
 
+def _key_tiled_cell(device, peaks, shape_name, b, n, d, heads, seed):
+    """The key-tiled attention core alone (K1's route past ``MAX_TOKENS``)
+    on a random fp32 qkv [B·N, 3D]: against ``attention_plain`` and timed
+    beside it and SDPA. Its bound counts the two products (4·B·N²·D) at the
+    TF32 peak, as the benchmark's ``attention_roofline`` does, and reads qkv
+    once and writes the output once (16·B·N·D bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_gp_tpu_torch.ops import _build
+    from clip_gp_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b * n, 3 * d, generator=g).to(device)
+    attn = torch.empty(b * n, d, device=device)
+    q, k, v = (t.reshape(b, n, heads, -1).transpose(1, 2)
+               for t in qkv.view(b, n, 3 * d).split(d, -1))
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run_kernel():
+        fa._attention(_build.library(), qkv, None, attn, b, n, heads, d, stream)
+        return attn.view(b, n, heads, -1).transpose(1, 2)
+
+    fa.reset_launch_counts()
+    cell = _forward_cell(
+        "key_tiled_attention", f"key_tiled_attention[{shape_name},B={b},fp32]",
+        (b, n, d, heads), "fp32",
+        (run_kernel, lambda: fa.attention_plain(q, k, v),
+         lambda: F.scaled_dot_product_attention(q, k, v)),
+        4 * b * n * n * d, 16 * b * n * d, peaks, rate=peaks["tf32"])
+    if fa.LAUNCHES["key_tiled_attention"] == 0:
+        raise RuntimeError(f"{cell['name']}: the key-tiled core was not counted")
+    return cell
+
+
 def phase_kernels(device, peaks):
     import torch
 
@@ -728,6 +774,7 @@ def phase_kernels(device, peaks):
                     lambda: _k2_library(p),
                 ),
             }
+            fa.reset_launch_counts()
             for kernel, kernel_runs in runs.items():
                 flops, nbytes = _cost(kernel, b, n, d, p["x"].element_size(),
                                       causal)
@@ -735,7 +782,19 @@ def phase_kernels(device, peaks):
                     kernel, f"{kernel}[{shape_name},B={b},{dtype_name}]",
                     (b, n, d, heads), dtype_name, kernel_runs, flops, nbytes,
                     peaks))
+            # every K1 call past MAX_TOKENS takes the key-tiled core, none
+            # up to it
+            k1_calls = fa.LAUNCHES["fused_ln_attention_block"]
+            tiled = fa.LAUNCHES["key_tiled_attention"]
+            log(f"[kernels] {shape_name},B={b},{dtype_name}: K1 calls {k1_calls}, "
+                f"key-tiled {tiled}")
+            if k1_calls == 0 or tiled != (k1_calls if n > fa.MAX_TOKENS else 0):
+                raise RuntimeError(f"{shape_name},B={b}: {tiled} of {k1_calls} K1 "
+                                   "calls took the key-tiled core")
             del p, k1, k2, runs
+            if n > fa.MAX_TOKENS:
+                cells.append(_key_tiled_cell(device, peaks, shape_name, b, n, d,
+                                             heads, seed=len(cells)))
     return cells
 
 
@@ -3879,7 +3938,8 @@ def main() -> int:
         by_path.update(phase_multi(smi))
         by_path["scripts"] = phase_scripts(smi, pt)
     for cell in cells:
-        counts = {path: launches[cell["kernel"]] for path, launches in by_path.items()}
+        counts = {path: launches.get(cell["kernel"], 0)
+                  for path, launches in by_path.items()}
         cell["launches"] = sum(counts.values())
         cell["launches_by_path"] = counts
     log(json.dumps({"kernels": cells}))

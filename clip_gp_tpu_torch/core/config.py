@@ -422,7 +422,7 @@ DATASET_CHOICES = [
 ]
 
 BACKBONE_CHOICES = [
-    "RN50", "RN101", "RN50x4", "RN50x16", "ViT-B/32", "ViT-B/16",
+    "RN50", "RN101", "RN50x4", "RN50x16", "ViT-B/32", "ViT-B/16", "ViT-L/14@336px",
     # tiny random-weight towers for tests/smoke runs
     "TEST-ViT", "TEST-RN",
 ]

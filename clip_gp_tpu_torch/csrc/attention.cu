@@ -10,8 +10,9 @@
 // - K5's (below).
 // The kernel takes each operand's batch, head and row strides, so the two
 // layouts differ only in the strides the entry points pass. Head width 32 or
-// 64 and sequences of at most 256 tokens (every CLIP tower here: ViT-B/16
-// 197, ViT-B/32 50, text 77; the JAX tests' heads of 32).
+// 64 and sequences of at most 256 tokens (ViT-B/16 197, ViT-B/32 50, text 77;
+// the JAX tests' heads of 32). Longer sequences (ViT-L/14@336px's 577) take
+// the key-tiled core at the end of this file, in K1's packed layout and fp32.
 //
 // Per head, as the Pallas kernels: q is scaled by 1/sqrt(Dh) in the working
 // type T (the factor itself rounded to T, as JAX casts a Python scalar to the
@@ -79,6 +80,8 @@
 // 25) holds 109 KB, so two fit. Registers are printed by the build (-Xptxas
 // -v). No atomics: every output element is summed by one thread in a fixed
 // order, so the output repeats bit for bit.
+#include <climits>
+
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -429,25 +432,32 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// the shared-memory opt-in is a property of the function on a device: set it
+// once per function and device, not on every launch (bit d of ``opted_in``:
+// device d; atomic, as several host threads may launch)
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes,
+                   std::atomic<unsigned long long>& opted_in) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !((opted_in.load() >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) opted_in.fetch_or(1ull << dev);
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int DH, int NT, bool QUANT>
 int launch_nt(const void* q, const void* k, const void* v, const void* mask,
               void* out, void* q_scale, int B, int N, int H, Strides in,
               Strides os, cudaStream_t s) {
   constexpr size_t bytes = Layout<T, DH, NT, QUANT>::bytes;
-  // the shared-memory opt-in is a property of the function on a device: set
-  // it once per instantiation and device, not on every launch
-  // bit d: device d; atomic, as several host threads may launch
   static std::atomic<unsigned long long> opted_in{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in(attention_kernel<T, DH, NT, QUANT>, bytes, opted_in);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !((opted_in.load() >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(attention_kernel<T, DH, NT, QUANT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted_in.fetch_or(1ull << dev);
-  }
   attention_kernel<T, DH, NT, QUANT><<<B * H, WARPS * 32, bytes, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
       QUANT ? nullptr : (T*)out, QUANT ? (int8_t*)out : nullptr,
@@ -495,6 +505,267 @@ int launch_bhnd(const void* q, const void* k, const void* v, const void* mask,
   return launch<T, DH, false>(q, k, v, mask, out, nullptr, B, N, H, st, st, s);
 }
 
+// ---------------------------------------------------------------------------
+// The key-tiled core: K1's packed path above 256 tokens, in fp32
+// ---------------------------------------------------------------------------
+//
+// Past 256 tokens a strip's scores no longer fit in registers (289 fp32
+// values a thread at ViT-L/14@336px's N = 577), so this core streams each
+// head's K and V through shared memory in tiles of TK keys and keeps an
+// online softmax per query row (FlashAttention-2's loop): a running max m, a
+// running sum l and fp32 accumulators O, rescaled by exp(m_old - m_new) as
+// each tile arrives (0 while every key so far is masked), divided by l once
+// at the end with the strip kernel's Markstein division. In fp32, rounding P
+// to the working type is the identity, so this differs from the exact
+// softmax only in rounding: the order of the sums and the factor that each
+// tile's exponentials carry. It takes no bf16 (P would round before it is
+// normalised, where the Pallas kernel rounds the normalised P) and no int8
+// output (K5): the Python wrappers refuse both past 256 tokens.
+//
+// What bounds it on an H100: at N = 577 a head's 4·N²·Dh operations and
+// 16·N·Dh bytes meet at the TF32 ridge (bytes bound it by 2%), and the
+// 3xTF32 products run at a third of the TF32 rate, so operations bound it.
+//
+// The tiles: a block of four warps holds TQ = 64 query rows, a 16-row strip
+// a warp (the mma's m), so each K and V tile in shared memory feeds four
+// strips. TK = 64 keys, eight n-tiles of 8: a thread holds 32 scores, 32
+// output accumulators and Q's TF32 hi and lo fragments (64 registers, split
+// once, as every tile reuses them); ptxas gives the kernel 202 registers, so
+// two blocks fit an SM. Two stages of K and V (36 KB each, in the strip
+// kernel's padded rows) take 72 KB a block, which would let three fit; 128
+// keys a tile would take 143 KB and leave one block an SM. The stages are
+// filled by 16-byte cp.async, the next tile's copy overlapping this tile's
+// products.
+// The products are the strip kernel's 3xTF32 mma.sync.m16n8k8 with its k
+// permutation, so S's accumulator is P's A fragment as it stands. The last
+// tile runs only the n-tiles that hold keys (at N = 577 one of eight).
+// One block per (query tile, head, batch element), query tiles fastest, so
+// the blocks of one head run together and read its K and V through L2. No
+// atomics: the output repeats bit for bit.
+
+constexpr int TQ = WARPS * STRIP;  // query rows of a block
+constexpr int TK = 64;             // keys of a tile
+constexpr int TK_NT = TK / 8;      // its n-tiles of 8 keys
+constexpr int TILED_DH = 64;
+
+struct TiledLayout {
+  static constexpr int K_LD = TILED_DH + 8;
+  static constexpr int V_LD = TILED_DH + 4;
+  static constexpr int STAGE = TK * (K_LD + V_LD);  // floats
+  static constexpr size_t bytes = sizeof(float) * 2 * STAGE;
+};
+
+// one tile of keys [k0, k0 + TK) for the warp's strip (rows row0 and row0 +
+// 8 of each fragment): S = Q.K^T, the mask added, keys >= N at -inf, the
+// online update of m, l and O, then O += P.V. FULL: every key of the tile is
+// < N; else only the first ``nta`` n-tiles are run. l is this thread's part
+// of the row sum (its quad's lanes are summed at the end).
+template <bool FULL>
+__device__ __forceinline__ void tiled_step(float (&o)[TILED_DH / 8][4],
+                                           float (&m)[2], float (&l)[2],
+                                           const uint32_t (&qh)[TILED_DH / 8][4],
+                                           const uint32_t (&ql)[TILED_DH / 8][4],
+                                           const float* Ks, const float* Vs,
+                                           const float* mask, int N, int row0,
+                                           int k0, int nta, int lane) {
+  using L = TiledLayout;
+  const int g = lane >> 2, t = lane & 3;
+  float s[TK_NT][4];
+#pragma unroll
+  for (int nt = 0; nt < TK_NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < TILED_DH / 8; ++kk) {
+    const float* kr = Ks + g * L::K_LD + kk * 8 + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < TK_NT; ++nt) {
+      if (FULL || nt < nta) {
+        const float2 kv = *reinterpret_cast<const float2*>(kr + nt * 8 * L::K_LD);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kv.x, bh0, bl0);
+        split_tf32(kv.y, bh1, bl1);
+        mma_3xtf32(s[nt], qh[kk], ql[kk], bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < TK_NT; ++nt) {
+    if (FULL || nt < nta) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1), key = k0 + nt * 8 + 2 * t + (e & 1);
+        if (mask != nullptr && row < N && key < N) s[nt][e] += mask[(size_t)row * N + key];
+        if (!FULL && key >= N) s[nt][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    }
+  }
+  float base[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    base[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = expf(m[r] - base[r]);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < TK_NT; ++nt) {
+    if (FULL || nt < nta) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - base[e >> 1]);
+        sum[e >> 1] += s[nt][e];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+  for (int dt = 0; dt < TILED_DH / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
+
+  // O += P.V as the strip kernel's pv: n-tile nt's accumulators (c0, c2,
+  // c1, c3) are the A fragment of keys [8 nt, 8 nt + 8)
+  const float* vr = Vs + 2 * t * L::V_LD + g;
+#pragma unroll
+  for (int nt = 0; nt < TK_NT; ++nt) {
+    if (FULL || nt < nta) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[nt][0], ah[0], al[0]);
+      split_tf32(s[nt][2], ah[1], al[1]);
+      split_tf32(s[nt][1], ah[2], al[2]);
+      split_tf32(s[nt][3], ah[3], al[3]);
+      const float* v0 = vr + nt * 8 * L::V_LD;
+#pragma unroll
+      for (int dt = 0; dt < TILED_DH / 8; ++dt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(v0[dt * 8], bh0, bl0);
+        split_tf32(v0[L::V_LD + dt * 8], bh1, bl1);
+        mma_3xtf32(o[dt], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WARPS * 32, 2)
+    attention_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ mask,
+                           float* __restrict__ out, int N, int H, int nq,
+                           Strides in, Strides os) {
+  using L = TiledLayout;
+  constexpr int DH = TILED_DH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+  const int qt = blockIdx.x % nq, bh = blockIdx.x / nq;
+  const int h = bh % H, b = bh / H;
+  const long long in_off = b * in.batch + h * in.head;
+  const float* kb = k + in_off;
+  const float* vb = v + in_off;
+  const int ntiles = (N + TK - 1) / TK;
+
+  // K and V of tile j into stage j % 2, rows past N zeroed
+  auto load_tile = [&](int j) {
+    float* Ks = stages + (j & 1) * L::STAGE;
+    const int k0 = j * TK, n = min(TK, N - k0);
+    load_rows<float, DH>(Ks, L::K_LD, kb + (long long)k0 * in.row, in.row, n, TK);
+    load_rows<float, DH>(Ks + TK * L::K_LD, L::V_LD, vb + (long long)k0 * in.row,
+                         in.row, n, TK);
+    cp_async_commit();
+  };
+  load_tile(0);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = qt * TQ + warp * STRIP, row0 = r0 + g;
+  // a warp past the last row still loads tiles and meets the barriers
+  const bool active = r0 < N;
+  // Q's fragments scaled by 1/sqrt(Dh) (0.125, exact) and split once, while
+  // the first tile is in flight; k = t reads column 8 kk + 2t, k = t + 4
+  // column 8 kk + 2t + 1
+  const float scale = (float)(1.0 / sqrt((double)DH));
+  const float* qb = q + in_off;
+  uint32_t qh[DH / 8][4], ql[DH / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    float2 qa = make_float2(0.f, 0.f), qc = qa;
+    const int d = kk * 8 + 2 * t;
+    if (row0 < N) qa = *reinterpret_cast<const float2*>(qb + (long long)row0 * in.row + d);
+    if (row0 + 8 < N)
+      qc = *reinterpret_cast<const float2*>(qb + (long long)(row0 + 8) * in.row + d);
+    split_tf32(qa.x * scale, qh[kk][0], ql[kk][0]);
+    split_tf32(qc.x * scale, qh[kk][1], ql[kk][1]);
+    split_tf32(qa.y * scale, qh[kk][2], ql[kk][2]);
+    split_tf32(qc.y * scale, qh[kk][3], ql[kk][3]);
+  }
+  float o[DH / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + 1 < ntiles) {
+      load_tile(j + 1);
+      cp_async_wait<1>();  // tile j has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Ks = stages + (j & 1) * L::STAGE;
+    const float* Vs = Ks + TK * L::K_LD;
+    const int k0 = j * TK;
+    if (active) {
+      if (k0 + TK <= N)
+        tiled_step<true>(o, m, l, qh, ql, Ks, Vs, mask, N, row0, k0, TK_NT, lane);
+      else
+        tiled_step<false>(o, m, l, qh, ql, Ks, Vs, mask, N, row0, k0,
+                          (N - k0 + 7) / 8, lane);
+    }
+    __syncthreads();  // stage j % 2 is refilled in the next round
+  }
+  if (!active) return;
+
+  float* ob = out + b * os.batch + h * os.head;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    const float rc = __frcp_rn(sum);
+    const int row = row0 + 8 * r;
+#pragma unroll
+    for (int dt = 0; dt < DH / 8; ++dt) {
+      float2 val;
+      float qv = o[dt][2 * r] * rc;
+      val.x = fmaf(fmaf(-qv, sum, o[dt][2 * r]), rc, qv);
+      qv = o[dt][2 * r + 1] * rc;
+      val.y = fmaf(fmaf(-qv, sum, o[dt][2 * r + 1]), rc, qv);
+      if (row < N)
+        *reinterpret_cast<float2*>(ob + (long long)row * os.row + dt * 8 + 2 * t) = val;
+    }
+  }
+}
+
+// qkv [B, N, 3D] fp32 -> attn [B, N, D], head width 64, any N
+int launch_tiled(const void* qkv, const void* mask, void* out, int B, int N,
+                 int H, int D, cudaStream_t s) {
+  constexpr int DH = TILED_DH;
+  const Strides in{(long long)N * 3 * D, DH, 3 * D};
+  const Strides os{(long long)N * D, DH, D};
+  const int nq = (N + TQ - 1) / TQ;
+  const long long blocks = (long long)B * H * nq;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> opted_in{0};
+  const cudaError_t err = opt_in(attention_tiled_kernel, TiledLayout::bytes, opted_in);
+  if (err != cudaSuccess) return (int)err;
+  const float* base = (const float*)qkv;
+  attention_tiled_kernel<<<(unsigned)blocks, WARPS * 32, TiledLayout::bytes, s>>>(
+      base, base + D, base + 2 * D, (const float*)mask, (float*)out, N, H, nq, in, os);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // head widths and N <= 256 are checked by the Python wrappers; refused here
@@ -510,6 +781,16 @@ extern "C" int cgt_attention(const void* qkv, const void* mask, void* out,
     return launch_packed<__nv_bfloat16, false>(qkv, mask, out, nullptr, B, N,
                                                H, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K1's attention core past 256 tokens: fp32 qkv [B, N, 3D] -> attn [B, N, D]
+// by the key-tiled core (the wrapper routes by N)
+extern "C" int cgt_attention_tiled(const void* qkv, const void* mask, void* out,
+                                   int B, int N, int H, int D, int dtype,
+                                   void* stream) {
+  if (N < 1 || B < 1 || H < 1 || D != H * 64 || dtype != kF32)
+    return (int)cudaErrorInvalidValue;
+  return launch_tiled(qkv, mask, out, B, N, H, D, (cudaStream_t)stream);
 }
 
 // K5's attention core: int8 codes q_out [B, N, D] and fp32 scales

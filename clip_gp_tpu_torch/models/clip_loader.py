@@ -429,8 +429,10 @@ def load_torch_checkpoint(path: str, device=None) -> Tuple[ClipArchitecture, CLI
 def _candidate_paths(backbone: str):
     """``$CLIP_GP_TPU_TORCH_WEIGHTS_DIR``, ``~/.cache/clip_gp_tpu`` and
     ``~/.cache/clip`` (the OpenAI download cache), each the npz before the
-    ``.pt``."""
+    ``.pt``, and the ``.pt`` also under OpenAI's own file name where it
+    differs (``ViT-L-14-336px.pt`` for ``ViT-L/14@336px``)."""
     safe = backbone.replace("/", "-")
+    openai = safe.replace("@", "-")
     dirs = []
     if os.environ.get("CLIP_GP_TPU_TORCH_WEIGHTS_DIR"):
         dirs.append(Path(os.environ["CLIP_GP_TPU_TORCH_WEIGHTS_DIR"]))
@@ -438,6 +440,8 @@ def _candidate_paths(backbone: str):
     for d in dirs:
         yield d / f"{safe}.npz"
         yield d / f"{safe}.pt"
+        if openai != safe:
+            yield d / f"{openai}.pt"
 
 
 def _file_tag(path: str) -> str:

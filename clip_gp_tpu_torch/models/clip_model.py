@@ -81,6 +81,9 @@ ARCHITECTURES: Dict[str, ClipArchitecture] = {
                                  transformer_width=512, transformer_heads=8),
     "ViT-B/16": ClipArchitecture("ViT-B/16", 512, 224, 12, 768, 16,
                                  transformer_width=512, transformer_heads=8),
+    # 577 image tokens: K1's key-tiled attention core
+    "ViT-L/14@336px": ClipArchitecture("ViT-L/14@336px", 768, 336, 24, 1024, 14,
+                                       transformer_width=768, transformer_heads=12),
     # tiny towers for CPU tests and CI — not real CLIP checkpoints
     "TEST-ViT": ClipArchitecture("TEST-ViT", 32, 32, 2, 64, 8,
                                  transformer_width=64, transformer_heads=1,

@@ -42,6 +42,8 @@ SIGNATURES = {
     "cgt_ln_apply": [_c_void_p] * 5 + [_c_int] * 2 + [_c_void_p],
     "cgt_attention": [_c_void_p, _c_void_p, _c_void_p] + [_c_int] * 5
     + [_c_void_p],
+    "cgt_attention_tiled": [_c_void_p, _c_void_p, _c_void_p] + [_c_int] * 5
+    + [_c_void_p],
     "cgt_gemm_bwd": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p],
     "cgt_ln_f32": [_c_void_p] * 5 + [_c_int] * 3 + [_c_void_p],
     "cgt_attention_bwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],

@@ -44,13 +44,21 @@ eager math elsewhere, and its ``CLIP_GP_TPU_DISABLE_FLASH`` opt-out) has
 no counterpart here.
 
 K1 and K2 take fp32 or bf16 activations (the frozen encodes of the training
-path run in fp32), head width 64 and sequences of at most 256 tokens. They
-are differentiable: when autograd needs their gradient they run as
-``torch.autograd.Function``s whose backward is K3/K4. The Function saves only
-the block's primal inputs and the backward recomputes the rest, as the TPU
-kernels do and as the JAX towers' per-block ``jax.checkpoint`` does. The
-weight gradients are computed only when autograd asks for them. What bounds
-each kernel on an H100 is stated at the top of its CUDA source.
+path run in fp32) and head width 64. K1's attention core routes by the
+sequence length N: up to ``MAX_TOKENS`` (256: ViT-B/16's 197 tokens,
+ViT-B/32's 50, the text tower's 77) the exact strip kernel, which holds a
+strip's scores over all keys in registers; above it, in fp32 only, the
+key-tiled core (ViT-L/14@336px's 577 tokens), which streams K and V in tiles
+of ``KEY_TILE`` keys with an online softmax (``attention_key_tiled_plain``
+is its plain version). Above 256 tokens K1 refuses bf16, whose
+probabilities would round before they are normalised, and a gradient,
+since K3's attention backward holds every key of a head; K2 and K4 take any
+N. K1 and K2 are differentiable: when autograd needs their gradient they
+run as ``torch.autograd.Function``s whose backward is K3/K4. The Function
+saves only the block's primal inputs and the backward recomputes the rest,
+as the TPU kernels do and as the JAX towers' per-block ``jax.checkpoint``
+does. The weight gradients are computed only when autograd asks for them.
+What bounds each kernel on an H100 is stated at the top of its CUDA source.
 
 K7 takes head widths 32 and 64 and is not differentiable, as the Pallas
 kernel has no JVP: a call with autograd on and an input that needs a
@@ -61,7 +69,9 @@ has no backward kernel for K8, so neither has the port; that backward is
 the port of the JAX one, not a fallback.
 
 ``LAUNCHES`` counts each wrapper's kernel launches (one per call on a CUDA
-tensor), so a run can show that its encodes went through the kernels.
+tensor), so a run can show that its encodes went through the kernels;
+``key_tiled_attention`` counts the K1 calls whose attention took the
+key-tiled core (also counted under ``fused_ln_attention_block``).
 """
 
 from __future__ import annotations
@@ -77,12 +87,17 @@ LAUNCHES: Dict[str, int] = {
     "fused_ln_attention_block": 0, "fused_ln_mlp": 0,
     "ln_attn_bwd": 0, "ln_mlp_bwd": 0,
     "flash_attention": 0, "fused_attention_block": 0,
+    "key_tiled_attention": 0,
 }
 
 HEAD_DIM = 64
 # the head widths K7 takes
 ATTENTION_HEAD_DIMS = (32, 64)
+# the most tokens of the exact strip kernel of csrc/attention.cu: K3, K5, K7,
+# K8 and a bf16 K1 take no more; an fp32 K1 takes the key-tiled core above
 MAX_TOKENS = 256
+# keys of a tile of the key-tiled core (csrc/attention.cu's TK)
+KEY_TILE = 64
 LN_EPS = 1e-5
 
 # C-side enums of csrc/common.cuh, csrc/ln_gemm.cu and csrc/gemm_bwd.cu
@@ -158,6 +173,34 @@ def attention_plain(q, k, v, mask=None, mm=_mm):
     weights = scores.exp()
     weights = weights / weights.sum(-1, keepdim=True)
     return mm(weights.to(dt), v).to(dt)
+
+
+def attention_key_tiled_plain(q, k, v, mask=None, mm=_mm, key_tile=KEY_TILE):
+    """Plain PyTorch version of the key-tiled core of ``csrc/attention.cu``
+    (fp32), in the order it reduces: q [B, H, N, Dh] scaled as in
+    ``attention_plain``; the keys in tiles of ``key_tile``, in order; per
+    query row a running max m, a running sum l and fp32 accumulators o, each
+    tile's scores (the mask added) exponentiated against the new max and the
+    old l and o rescaled by exp(m_old - m_new) (against 0 while every key so
+    far is masked); o / l at the end. ``mm`` as in ``attention_plain``."""
+    dt = q.dtype
+    q = q * torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=dt, device=q.device)
+    shape = q.shape[:-1] + (1,)
+    m = torch.full(shape, float("-inf"), device=q.device)
+    l = torch.zeros(shape, device=q.device)
+    o = torch.zeros(q.shape, device=q.device)
+    for k0 in range(0, k.shape[-2], key_tile):
+        s = mm(q, k[..., k0:k0 + key_tile, :].transpose(-1, -2))
+        if mask is not None:
+            s = s + mask[:, k0:k0 + key_tile].float()
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+        alpha = (m - base).exp()
+        p = (s - base).exp()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + mm(p, v[..., k0:k0 + key_tile, :])
+        m = m_new
+    return (o / l).to(dt)
 
 
 def _mha_plain(h, w_qkv, b_qkv, num_heads, mask, mm):
@@ -400,18 +443,19 @@ def ln_mlp_bwd_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, dout,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check_inputs(name, x, weights, vectors, mask=None):
+def _check_inputs(name, x, weights, vectors, mask=None, max_tokens=MAX_TOKENS):
     """Shared checks of the wrappers; raises on anything the kernels do not
     take. ``vectors`` maps each 1-D input's name to ``(tensor, expected
-    length)``."""
+    length)``; ``max_tokens`` is the most tokens the wrapper takes (None: any
+    number)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous [B, N, D] tensor")
-    if x.shape[1] > MAX_TOKENS or x.shape[2] % 8:
-        raise ValueError(
-            f"{name}: needs N <= {MAX_TOKENS} and D % 8 == 0, got {tuple(x.shape)}"
-        )
+    if max_tokens is not None and x.shape[1] > max_tokens:
+        raise ValueError(f"{name}: needs N <= {max_tokens}, got {tuple(x.shape)}")
+    if x.shape[2] % 8:
+        raise ValueError(f"{name}: needs D % 8 == 0, got {tuple(x.shape)}")
     tensors = [x, *weights.values(), *(v for v, _ in vectors.values())]
     for key, w in weights.items():
         if w.dtype != x.dtype or not w.is_contiguous() or w.dim() != 2:
@@ -471,6 +515,23 @@ def _check_attention(name, q, k, v, mask):
     _check_devices(name, q, tensors)
 
 
+def _check_k1_tokens(name, x, tracked):
+    """K1 past ``MAX_TOKENS`` tokens: only the key-tiled core, in fp32 and
+    without a gradient."""
+    n = x.shape[1]
+    if n <= MAX_TOKENS:
+        return
+    if x.dtype != torch.float32:
+        raise ValueError(
+            f"{name}: needs N <= {MAX_TOKENS} in {x.dtype}, got N={n}: above it only "
+            "the fp32 key-tiled core runs (in bf16 its probabilities would round "
+            "before they are normalised)")
+    if tracked:
+        raise ValueError(
+            f"{name}: needs N <= {MAX_TOKENS} for a gradient, got N={n}: K3's "
+            "attention backward holds every key of a head")
+
+
 def _check_heads(name, x, w_qkv, w_out, num_heads):
     d = x.shape[2]
     if d % num_heads or d // num_heads != HEAD_DIM:
@@ -510,13 +571,19 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 @_build.on_tensor_device
 def _attention(lib, qkv, mask, attn, b, n, num_heads, d, stream):
-    """The attention core of K1 and K8: qkv [B·N, 3D] -> attn [B·N, D]."""
+    """The attention core of K1 and K8: qkv [B·N, 3D] -> attn [B·N, D], by
+    the strip kernel up to ``MAX_TOKENS`` tokens, else (fp32; only K1 takes
+    such N) by the key-tiled core, counted in ``LAUNCHES``."""
     mask32 = None if mask is None else _f32(mask)
+    tiled = n > MAX_TOKENS
+    entry = lib.cgt_attention_tiled if tiled else lib.cgt_attention
     _build.check(
-        lib.cgt_attention(_ptr(qkv), _ptr(mask32), _ptr(attn), b, n,
-                          num_heads, d, _DTYPE_CODE[qkv.dtype], stream),
-        "attention",
+        entry(_ptr(qkv), _ptr(mask32), _ptr(attn), b, n, num_heads, d,
+              _DTYPE_CODE[qkv.dtype], stream),
+        "attention_tiled" if tiled else "attention",
     )
+    if tiled:
+        _build.count_launch(LAUNCHES, "key_tiled_attention")
 
 
 @_build.on_tensor_device
@@ -843,7 +910,7 @@ def ln_mlp_bwd(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, dout,
     name = "ln_mlp_bwd"
     _check_inputs(name, x, {"w_fc": w_fc, "w_proj": w_proj},
                   {"ln_scale": (ln_scale, d), "ln_bias": (ln_bias, d),
-                   "b_fc": (b_fc, hidden)})
+                   "b_fc": (b_fc, hidden)}, max_tokens=None)
     _check_mlp_shapes(name, x, w_fc, w_proj)
     _check_grad(name, x, dout)
     if x.device.type == "cpu":
@@ -939,15 +1006,19 @@ def fused_ln_attention_block(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     """K1: ``x + MHA(LN(x))`` for x [B, N, D]; weights in right-multiply form
     (w_qkv [D, 3D], w_out [D, D]) and in x's dtype; mask an optional additive
     fp32 [N, N]. Returns [B, N, D] in x's dtype. Differentiable in every
-    input but the mask, through K3."""
+    input but the mask, through K3, up to ``MAX_TOKENS`` tokens; above them
+    fp32 only and without a gradient (the key-tiled core)."""
     d = x.shape[-1]
     name = "fused_ln_attention_block"
     _check_inputs(name, x, {"w_qkv": w_qkv, "w_out": w_out},
                   {"ln_scale": (ln_scale, d), "ln_bias": (ln_bias, d),
-                   "b_qkv": (b_qkv, 3 * d), "b_out": (b_out, d)}, mask)
+                   "b_qkv": (b_qkv, 3 * d), "b_out": (b_out, d)}, mask,
+                  max_tokens=None)
     _check_heads(name, x, w_qkv, w_out, num_heads)
     args = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out)
-    if _tracked(*args):
+    tracked = _tracked(*args)
+    _check_k1_tokens(name, x, tracked)
+    if tracked:
         return _LnAttentionFn.apply(*args, num_heads, mask)
     return _ln_attention_forward(*args, num_heads, mask)
 
@@ -955,12 +1026,13 @@ def fused_ln_attention_block(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
 def fused_ln_mlp(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     """K2: ``x + MLP(LN(x))`` for x [B, N, D]; w_fc [D, 4D] and w_proj [4D, D]
     in x's dtype; biases are used in fp32. Returns [B, N, D] in x's dtype.
-    Differentiable in every input, through K4."""
+    Differentiable in every input, through K4. Any N: it has no attention."""
     d = x.shape[-1]
     name = "fused_ln_mlp"
     _check_inputs(name, x, {"w_fc": w_fc, "w_proj": w_proj},
                   {"ln_scale": (ln_scale, d), "ln_bias": (ln_bias, d),
-                   "b_fc": (b_fc, w_fc.shape[-1]), "b_proj": (b_proj, d)})
+                   "b_fc": (b_fc, w_fc.shape[-1]), "b_proj": (b_proj, d)},
+                  max_tokens=None)
     _check_mlp_shapes(name, x, w_fc, w_proj)
     args = (x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj)
     if _tracked(*args):

@@ -192,9 +192,11 @@ def _check(name, x, int8_weights, vectors, mask=None):
         raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous [B, N, D] tensor")
-    if x.shape[1] > MAX_TOKENS or x.shape[2] % HEAD_DIM:
-        raise ValueError(f"{name}: needs N <= {MAX_TOKENS} and D % {HEAD_DIM} "
-                         f"== 0, got {tuple(x.shape)}")
+    if x.shape[1] > MAX_TOKENS:
+        raise ValueError(f"{name}: needs N <= {MAX_TOKENS}, got {tuple(x.shape)}: "
+                         "the int8 tower's attention core has no key-tiled form")
+    if x.shape[2] % HEAD_DIM:
+        raise ValueError(f"{name}: needs D % {HEAD_DIM} == 0, got {tuple(x.shape)}")
     tensors = [x]
     for key, (w, shape) in int8_weights.items():
         if w.dtype != torch.int8 or not w.is_contiguous() or tuple(w.shape) != shape:

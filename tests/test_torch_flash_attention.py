@@ -192,7 +192,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                      _t(p["b_proj"]))
     assert set(tfa.LAUNCHES) == {"fused_ln_attention_block", "fused_ln_mlp",
                                  "ln_attn_bwd", "ln_mlp_bwd",
-                                 "flash_attention", "fused_attention_block"}
+                                 "flash_attention", "fused_attention_block",
+                                 "key_tiled_attention"}
     assert not any(tfa.LAUNCHES.values())
 
 
@@ -246,7 +247,8 @@ def test_mlp_wrapper_rejects_a_bias_of_the_wrong_length():
     "change, match",
     [
         (dict(d=96, heads=2), "head width"),  # head width 48
-        (dict(n=257), "N <= 256"),
+        # fp32 takes the key-tiled core past 256 tokens; bf16 stops there
+        (dict(n=257, dtype=torch.bfloat16), "N <= 256"),
     ],
     ids=["head-width", "too-many-tokens"],
 )

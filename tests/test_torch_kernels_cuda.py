@@ -8,7 +8,8 @@ runs on a machine with only PyTorch and the CUDA toolkit:
 Shapes cover the ragged edges the kernels mask themselves: token counts
 at and beside the attention core's 16-row query strips and 16-key chunks,
 token counts that are not multiples of the 128-row GEMM tile, a single
-token, the 256-token limit, a causal and a random finite additive mask, and
+token, the 256-token limit and past it (the key-tiled core), a causal and a
+random finite additive mask, and
 an MLP width that is not a multiple of the 128-column tile. Tolerances are chip_smoke.py's: fp32
 1e-4, since both sides sum the same fp32 products in other orders; bf16 one
 bf16 ulp (2^-7 relative plus 2^-6 absolute), since both round to bf16 at the
@@ -441,7 +442,8 @@ def test_each_call_on_the_card_counts_one_launch(device):
     _k2(p).sum().backward()
     assert fa.LAUNCHES == {"fused_ln_attention_block": 2, "fused_ln_mlp": 2,
                            "ln_attn_bwd": 0, "ln_mlp_bwd": 1,
-                           "flash_attention": 0, "fused_attention_block": 0}
+                           "flash_attention": 0, "fused_attention_block": 0,
+                           "key_tiled_attention": 0}
 
 
 def test_k1_launches_on_its_tensors_device_from_a_thread_on_another(device):
@@ -858,6 +860,70 @@ def test_k7_kernel_matches_plain_under_a_random_additive_mask(device, n, dh, dty
     with torch.no_grad():
         _assert_close(fa.flash_attention(q, k, v, mask),
                       fa.attention_plain(q, k, v, mask), dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1's key-tiled attention core past 256 tokens (fp32 only): the core alone
+# against attention_plain at the edges of its 64-key and 64-query tiles and
+# past ViT-L/14@336px's 577 tokens, with no, a causal and a random finite
+# mask; K1 at ViT-L/14@336px's widths (N = 577, D = 1024, 16 heads) against
+# the plain block, its repeat bit for bit and its counter.
+# ---------------------------------------------------------------------------
+
+def _key_tiled_core(qkv, heads, mask):
+    """[B, N, 3D] fp32 -> [B, N, D] through the route of K1 and K8."""
+    from clip_gp_tpu_torch.ops import _build
+
+    b, n, three_d = qkv.shape
+    d = three_d // 3
+    attn = torch.empty(b * n, d, dtype=qkv.dtype, device=qkv.device)
+    fa._attention(_build.library(), qkv.view(b * n, three_d), mask, attn, b, n, heads, d,
+                  torch.cuda.current_stream(qkv.device).cuda_stream)
+    return attn.view(b, n, d)
+
+
+@pytest.mark.parametrize("mask", ["none", "causal", "random"])
+@pytest.mark.parametrize("n", [257, 320, 321, 577, 1000])
+def test_key_tiled_core_matches_plain(device, n, mask):
+    b, heads, dh = 2, 3, 64
+    g = torch.Generator().manual_seed(n)
+    qkv = torch.randn(b, n, 3 * heads * dh, generator=g).to(device)
+    m = None
+    if mask == "causal":
+        m = torch.triu(torch.full((n, n), float("-inf"), device=device), 1)
+    elif mask == "random":
+        m = (2 * torch.randn(n, n, generator=g)).to(device)
+    q, k, v = (t.reshape(b, n, heads, dh).transpose(1, 2)
+               for t in qkv.split(heads * dh, dim=-1))
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = _key_tiled_core(qkv, heads, m)
+        ref = fa.attention_plain(q, k, v, m).transpose(1, 2).reshape(b, n, heads * dh)
+    _assert_close(got, ref, torch.float32)
+    assert fa.LAUNCHES["key_tiled_attention"] == 1
+
+
+@pytest.mark.parametrize("shape", [(4, 577, 1024, 16, False), (2, 300, 128, 2, True)],
+                         ids=str)
+def test_k1_past_256_tokens_matches_plain_through_the_key_tiled_core(device, shape):
+    b, n, d, heads, causal = shape
+    p = _inputs(b, n, d, torch.float32, device, causal=causal)
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        out = _k1(p, heads)
+        _assert_close(out, _k1(p, heads, fa.ln_attention_block_plain), torch.float32)
+        assert torch.equal(out, _k1(p, heads))
+    assert fa.LAUNCHES["fused_ln_attention_block"] == fa.LAUNCHES["key_tiled_attention"] == 2
+
+
+@pytest.mark.parametrize("n", [197, 256])
+def test_k1_up_to_256_tokens_keeps_the_strip_kernel(device, n):
+    p = _inputs(2, n, 128, torch.float32, device)
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        _k1(p, 2)
+    assert fa.LAUNCHES["fused_ln_attention_block"] == 1
+    assert fa.LAUNCHES["key_tiled_attention"] == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
